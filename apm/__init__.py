@@ -1,4 +1,4 @@
-"""apm — TPU-native approximate pattern matching (Levenshtein scan).
+"""apm — approximate pattern matching (Levenshtein scan) on an accelerator.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 INF560 MPI+OpenMP+CUDA reference: count, for each pattern, the text windows

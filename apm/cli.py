@@ -56,22 +56,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         sys.stdout.write(_usage(prog))
         return 1
 
-    import os
+    from .utils.compile_cache import enable_compile_cache
 
-    # Honor JAX_PLATFORMS even on images whose TPU plugin wins the backend
-    # election, and keep a persistent compile cache across invocations.
-    import jax
-
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat and "," not in plat:
-        jax.config.update("jax_platforms", plat)
-    cache_dir = os.environ.get(
-        "APM_COMPILE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "apm_jax"),
-    )
-    if cache_dir:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     from .utils.config import ApmConfig
 

@@ -1,21 +1,16 @@
 """Shared scan-pipeline orchestration.
 
-Round 1 grew three hand-maintained copies of the phase-1 / density-check /
-phase-2 filtration pipeline (``Scanner._count_pallas``,
-``strategies.count_database_over_devices``, ``multihost.count_multihost``)
-and they diverged — the multihost copy computed the halo without the
-``2k`` filtration margin (a trace-time crash for ``m_max + 2k`` above a
-128 multiple), skipped the candidate-density fallback, and didn't gate the
-filter engine on the DP fold. This module is the single source of truth
-all three entry points now share:
+The single source of truth the three count entry points
+(``Scanner._count_pipeline``, ``strategies.count_database_over_devices``,
+``multihost.count_multihost``) share:
 
 * :class:`ScanPlan` / :func:`make_plan` — every derived layout quantity
-  (fold, block width, halo, window bound, engine gating, pattern
-  partition) computed in exactly one place;
+  (block width, halo, window bound) and every routing choice (engine,
+  pattern partition, how the DP step runs) computed in exactly one place;
 * :func:`finalize_filtration` — the phase-2 decision tree (zero-candidate
   skip, density fallback, on-device verified counts, overflow recovery,
   clipped-row verification) over per-chunk results from
-  ``apm.ops.fused.filter_verify_chunk``;
+  ``apm.ops.fused.filter_verify_chunk_conv``;
 * :func:`verify_rows_host` — the host-staged verification used only when
   a chunk overflows its on-device hot-row bucket.
 
@@ -27,11 +22,12 @@ share the verification code.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, TYPE_CHECKING
+from typing import Callable, List, Sequence, TYPE_CHECKING
 
 import numpy as np
 
 from ..ops.common import round_up
+from ..ops.pallas_kernel import DPStep
 
 if TYPE_CHECKING:  # pragma: no cover
     from .scanner import Scanner
@@ -78,19 +74,17 @@ def file_reader(path: str) -> Reader:
 class ScanPlan:
     """Derived layout for one scan: the quantities every path must agree on."""
 
-    backend: str
-    fold: int  # DP sublane fold (rows per kernel block)
-    w: int  # block windows (rounded to the fold x lane tile)
+    dp: DPStep  # how the banded DP step runs (kernel or plain XLA band)
+    w: int  # block windows (ROWS_PER_BLOCK staging rows)
     wf: int  # windows per staging row
     halo: int  # staging-row overlap >= m_max + 2k, lane-aligned
     dev_bound: int  # exclusive bound of device-owned window starts
-    engine: str  # "auto"/"filter"/"dp"/"corr" after fold gating
-    fmask: tuple  # per-pattern: True when filtration-eligible
-    plens_filter: tuple  # static lengths routed to the filtration kernel
-    plens_dp: tuple  # static lengths routed to the banded DP kernel
-    use_corr: bool = False  # k = 0 MXU correlation engine takes the scan
+    engine: str  # "auto" / "dp" / "corr"
+    fmask: tuple  # per-pattern: True when filtration takes it
+    plens_filter: tuple  # static lengths routed to filtration (k >= 1)
+    plens_dp: tuple  # static lengths routed to the banded DP
+    use_corr: bool = False  # k = 0 correlation engine takes the scan
     plens_corr: tuple = ()  # static lengths routed to the corr engine
-    fp1_conv: bool = False  # k >= 1: run filtration phase 1 on the MXU
 
     @property
     def any_filter(self) -> bool:
@@ -101,123 +95,68 @@ class ScanPlan:
         return any(self.plens_dp)
 
 
-def check_dp_dtype(platform: str, dp_dtype: str, interpret: bool) -> None:
-    """Narrow DP dtypes are CPU/interpret-only test modes.
+def make_plan(scanner: "Scanner", n: int) -> ScanPlan:
+    """Compute the scan layout and routing. ONE place for both.
 
-    v5e Mosaic has no packed 16/8-bit vector compares ("Target does not
-    support this comparison" — DESIGN.md §1), and SWAR emulation (4 int8
-    cells per int32 lane) costs ~3x the ops for 4x the density: a net
-    loss for the ~5-op banded recurrence. Rather than advertise dead
-    options, TPU hardware rejects them up front.
+    Routing follows the input alone — ``k``, pattern lengths, pattern
+    count and alphabet: k = 0 sets the correlation can take run the
+    correlation engine; at k >= 1 the patterns the piece correlation can
+    take (:func:`apm.ops.filtration.partition_plens`) run filtration
+    phase 1 + verification; everything else runs the banded DP. The only
+    platform fact, how the DP step runs, is ``scanner.dp_step()``.
+
+    The halo must satisfy every engine's contract: the banded DP needs
+    ``halo >= m_max - 1`` bytes of lookahead, the piece correlation
+    ``halo >= m_max + 2k`` (drifted pieces of windows owned near the row
+    end) — so ``round_up(m_max + 2k, 128)`` everywhere.
     """
-    if platform == "tpu" and not interpret and dp_dtype != "int32":
-        raise ValueError(
-            f"dp_dtype={dp_dtype!r} is not supported on TPU hardware "
-            "(no packed 16/8-bit vector compares on v5e; see DESIGN.md "
-            "§1). Use dp_dtype='int32' (the default); narrow dtypes "
-            "remain available under interpret=True for CPU testing."
-        )
-
-
-def make_plan(scanner: "Scanner", n: int, backend: Optional[str] = None) -> ScanPlan:
-    """Compute the scan layout. ONE place for the halo and engine gating.
-
-    The halo must satisfy both kernels' contracts: the banded kernel needs
-    ``halo >= m_max - 1 + k`` bytes of lookahead, the filtration kernel
-    ``halo >= m_max + 2k`` (its pre-rotated text tile shifts piece reads by
-    up to ``2k`` lanes) — so ``round_up(m_max + 2k, 128)`` everywhere.
-    Filtration itself requires the fold-8 int32 layout; narrower DP folds
-    force the banded engine.
-    """
-    from ..ops.filter_kernel import FOLD as FILTER_FOLD, partition_plens
-    from ..ops.pallas_kernel import _DTYPE_FOLD
-
-    backend = backend or scanner._resolve_backend()
-    if backend == "pallas":
-        import jax
-
-        check_dp_dtype(
-            jax.devices()[0].platform,
-            scanner.config.dp_dtype,
-            scanner.config.interpret,
-        )
-    k = scanner.k
-    fold = _DTYPE_FOLD[scanner.config.dp_dtype]
-    w = round_up(
-        scanner.block_windows_for(n), max(fold, FILTER_FOLD) * 128
-    )
-    halo = (
-        round_up(scanner.m_max + 2 * k, 128)
-        if backend == "pallas"
-        else scanner.m_max
-    )
-    engine = scanner.config.engine if fold == FILTER_FOLD else "dp"
-
-    # k = 0 on the device path: exact matching is a one-hot correlation —
-    # the MXU engine takes the WHOLE pattern set in one conv when eligible
-    # (apm.ops.corr_engine). "auto" opts in silently; "corr" demands it.
     from ..ops.corr_engine import ALPHABET_MAX, M_MAX_CORR, corr_eligible
+    from ..ops.filtration import partition_plens
+    from ..parallel.plan import ROWS_PER_BLOCK
 
-    use_corr = False
-    if backend == "pallas" and k == 0 and engine in ("auto", "corr"):
-        use_corr = corr_eligible(
-            scanner._plens_static,
-            len(scanner._corr_alphabet()),
-            scanner.m_max,
-            k,
-            auto=engine == "auto",
-        )
-    if scanner.config.engine == "corr" and not use_corr:
+    k = scanner.k
+    w = round_up(scanner.block_windows_for(n), ROWS_PER_BLOCK * 128)
+    engine = scanner.config.engine
+    alphabet_size = len(scanner._corr_alphabet())
+    common = dict(
+        dp=scanner.dp_step(),
+        w=w,
+        wf=w // ROWS_PER_BLOCK,
+        halo=round_up(scanner.m_max + 2 * k, 128),
+        dev_bound=scanner.device_window_bound(n),
+    )
+    # k = 0: exact matching is a correlation — the conv engine takes the
+    # WHOLE pattern set when eligible. "auto" opts in past the measured
+    # crossover; "corr" demands it.
+    use_corr = k == 0 and engine in ("auto", "corr") and corr_eligible(
+        scanner._plens_static, alphabet_size, scanner.m_max, k,
+        auto=engine == "auto",
+    )
+    if engine == "corr" and not use_corr:
         raise ValueError(
-            "engine='corr' requires the pallas backend, k == 0, a pattern "
-            f"alphabet of <= {ALPHABET_MAX} distinct bytes, and "
-            f"m_max <= {M_MAX_CORR}"
+            "engine='corr' requires k == 0, a pattern alphabet of <= "
+            f"{ALPHABET_MAX} distinct bytes, and m_max <= {M_MAX_CORR}"
         )
     if use_corr:
         zeros = tuple(0 for _ in scanner._plens_static)
         return ScanPlan(
-            backend=backend,
-            fold=fold,
-            w=w,
-            wf=w // fold,
-            halo=halo,
-            dev_bound=scanner.device_window_bound(n),
             engine="corr",
             fmask=tuple(False for _ in scanner._plens_static),
             plens_filter=zeros,
             plens_dp=zeros,
             use_corr=True,
             plens_corr=scanner._plens_static,
+            **common,
         )
-
     fmask, plens_filter, plens_dp = partition_plens(
-        scanner._plens_static, k, engine if backend == "pallas" else "dp"
+        scanner._plens_static, k, engine, alphabet_size
     )
-
-    # k >= 1 under "auto": run filtration phase 1 on the MXU when every
-    # filtration pattern qualifies (exact tier, selective pieces, measured
-    # conv-ahead crossover). engine="filter" pins the classic shift-OR
-    # kernel so the two phase-1 implementations stay A/B-comparable.
-    fp1_conv = False
-    if backend == "pallas" and engine == "auto" and any(plens_filter):
-        from ..ops.corr_engine import fp1_conv_eligible
-
-        fp1_conv = fp1_conv_eligible(
-            plens_filter, k, len(scanner._corr_alphabet())
-        )
-
     return ScanPlan(
-        backend=backend,
-        fold=fold,
-        w=w,
-        wf=w // fold,
-        halo=halo,
-        dev_bound=scanner.device_window_bound(n),
         engine=engine,
         fmask=fmask,
         plens_filter=plens_filter,
         plens_dp=plens_dp,
-        fp1_conv=fp1_conv,
+        **common,
     )
 
 
@@ -244,9 +183,8 @@ class FilterChunk:
 def candidate_density_dense(hot_rows: int, wf: int, dev_bound: int) -> bool:
     """The shared density threshold: when verification would touch more
     windows than ~5% of the corpus (or 64 rows minimum), rescanning the
-    filtration patterns with the banded kernel is cheaper than targeted
-    verification. Phase 1 costs ~5% of a DP scan, so the fallback is cheap
-    insurance."""
+    filtration patterns with the banded DP is cheaper than targeted
+    verification. Not measured on the H100."""
     return hot_rows * wf > max(64 * wf, dev_bound // 20)
 
 
@@ -363,11 +301,10 @@ def verify_rows_host(
     Rows are staged into one (bucket, wf + halo) array and verified with a
     single banded-DP call over all filtration patterns.
     """
-    import jax
     import jax.numpy as jnp
 
-    from ..ops.filter_kernel import FOLD
-    from ..ops.pallas_kernel import scan_folded_pallas_unrolled
+    from ..ops.fused import ROW_ALIGN
+    from ..ops.pallas_kernel import dp_count
 
     p_pad = scanner._pat.shape[0]
     out = np.zeros((p_pad,), dtype=np.int64)
@@ -375,20 +312,17 @@ def verify_rows_host(
         return out
     wf, halo = plan.wf, plan.halo
     n_hot = len(rows)
-    bucket = max(FOLD, round_up(n_hot, 4 * FOLD))
+    bucket = max(ROW_ALIGN, round_up(n_hot, 4 * ROW_ALIGN))
     stage = np.zeros((bucket, wf + halo), dtype=np.uint8)
     for i, j0 in enumerate(rows):
         stage[i] = reader(j0, wf + halo)
-    dev = scan_folded_pallas_unrolled(
+    dev = dp_count(
         jnp.asarray(stage),
         jnp.asarray(scanner._pat),
         jnp.asarray(n_hot * wf, jnp.int32),
         jnp.asarray(0, jnp.int32),
-        k=scanner.k, m_max=scanner.m_max, wf=wf, halo=halo,
-        plens=plan.plens_filter, dp_dtype=scanner.config.dp_dtype,
-        alphabet=scanner._dp_alphabet(),
-        dp_impl=scanner.config.dp_impl,
-        interpret=scanner.config.interpret,
+        k=scanner.k, m_max=scanner.m_max, wf=wf, plens=plan.plens_filter,
+        dp=plan.dp,
     )
     out += np.asarray(dev)
     return out

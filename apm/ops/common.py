@@ -30,12 +30,13 @@ def pad_corpus(buf: np.ndarray, n_pad: int, halo: int) -> np.ndarray:
 def fold_corpus(
     buf: np.ndarray, offset: int, n_rows: int, wf: int, halo: int
 ) -> np.ndarray:
-    """Stage the corpus into overlapping rows for the folded Pallas kernel.
+    """Stage the corpus into overlapping rows for the device engines.
 
     Row ``r`` holds bytes ``buf[offset + r*wf : offset + r*wf + wf + halo)``,
-    zero-padded past EOF. The ~``halo/wf`` duplication buys fully-dense
-    sublane tiling and lets the Pallas pipeline fetch each block with one
-    contiguous DMA (no in-kernel gather).
+    zero-padded past EOF. The ~``halo/wf`` duplication makes every row a
+    self-contained unit of work: each row's windows can be scanned,
+    gathered (phase-2 verification) or sharded without touching another
+    row.
     """
     try:
         from ..utils import native

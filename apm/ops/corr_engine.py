@@ -1,4 +1,4 @@
-"""Exact-match (k = 0) scanning on the MXU via ±1 bit-plane correlation.
+"""Exact-match (k = 0) scanning as a ±1 bit-plane correlation.
 
 At k = 0 approximate matching degenerates to exact matching, and exact
 matching is a *correlation*: window ``j`` matches pattern ``p`` iff
@@ -7,11 +7,11 @@ matching is a *correlation*: window ``j`` matches pattern ``p`` iff
 
 Encode symbols over channels so per-position equality becomes an inner
 product, and the whole scan is ONE convolution —
-``(R, L, C) * (m_max, C, P) -> (R, W, P)`` — which XLA lowers onto the
-MXU (the systolic array), where a v5e chip has ~197 bf16 TFLOP/s against
-the VPU's ~4 Tops/s that the banded-DP kernel's compare chains ride. The
-banded kernel (``apm.ops.pallas_kernel``) stays the engine for k >= 1,
-where the DP recurrence has no such bilinear form.
+``(R, L, C) * (m_max, C, P) -> (R, W, P)`` — which XLA hands to its
+convolution libraries (cuDNN / cuBLAS on the GPU) instead of the
+compare-and-min chains of the banded DP. The banded DP
+(``apm.ops.pallas_kernel``) stays the engine for k >= 1, where the DP
+recurrence has no such bilinear form.
 
 **±1 bit-planes, not one-hot (round 5).** Because the k = 0 test is
 all-or-nothing, the channel axis does not need to *count* per-position
@@ -27,11 +27,8 @@ otherwise, so
 
 (the maximum is attainable only by all-match, and any mismatched symbol
 loses >= 2 from at least one plane). DNA's 4-5 channel one-hot becomes
-2-3 bit-planes: 2-2.5x fewer MACs on the MXU (the P = 64 wide-N conv
-was MAC-bound at 27-37% of roof, VERDICT r4 ask #2) and 2-2.5x fewer
-encode elements on the VPU (the P <= 24 shift-folded conv was
-encode-bound at its ~9 GB/s one-hot floor, VERDICT r4 ask #1). One-hot
-still generalizes to counting *partial* matches; nothing in this engine
+2-3 bit-planes: 2-2.5x fewer multiply-adds in the contraction and
+2-2.5x fewer encoded elements. One-hot still generalizes to counting *partial* matches; nothing in this engine
 needs that — phase 1 pieces (below) are exact-threshold too.
 
 Two tricks make one conv serve an arbitrary pattern set:
@@ -39,8 +36,7 @@ Two tricks make one conv serve an arbitrary pattern set:
 * **Per-pattern thresholds, not padding channels.** Kernel positions past
   a pattern's real length stay all-zero and the match test is
   ``corr >= B * m_p`` per pattern (``corr`` cannot exceed ``B * m_p``):
-  no wildcard channel, no concat in the hot path — measured ~10% over
-  the wildcard formulation on chip. (Text bytes outside the alphabet
+  no wildcard channel, no concat in the hot path. (Text bytes outside the alphabet
   encode to the zero vector and can never complete a match — correct,
   since every pattern byte is in the alphabet by construction.)
 * **Alphabet-code channels, not byte channels.** Codes index the distinct
@@ -48,16 +44,17 @@ Two tricks make one conv serve an arbitrary pattern set:
   the contraction stays dense and the plane count minimal.
 
 Window-ownership masking is a per-ROW limit (one clipped subtract per
-row, ``col < limit[r]``) rather than a per-window global-index compare —
-the scan is VPU-encode-bound, so shaving the 3-op mask to 1 op is a
-measured ~25% end-to-end win.
+row, ``col < limit[r]``) rather than a per-window global-index compare.
 
 Exactness: inputs are 0/±1 in bf16, accumulation is f32
 (``preferred_element_type``), partial sums are integers with
 ``|corr| <= B * m_max`` — every value is exactly representable for
-``B * m_max < 2**24``, so the ``corr >= B * m_p`` test is bit-exact,
-and the engine is conformance-tested against the oracle like every
-other engine (tests/test_corr.py).
+``B * m_max < 2**24``, so the ``corr >= B * m_p`` test is bit-exact.
+The operands MUST be bf16: f32 operands may run as TF32 on the GPU's
+tensor cores, which keeps 10 mantissa bits and would round the sums, so
+every conv asserts its operand dtypes (:func:`_conv`). The engine is
+conformance-tested against the oracle like every other engine
+(tests/test_corr.py).
 
 Eligibility (:func:`corr_eligible`): k = 0, alphabet <= ``ALPHABET_MAX``
 (beyond that the contraction dilutes — each extra channel is pure FLOP
@@ -72,8 +69,7 @@ kernels run the full O(m^2) DP per window (``src/utils.c:76-99``,
 Memory: the bit-plane text tile is ``(rows, L, B)`` bf16 — ~4-6x the
 staged bytes for DNA (the one-hot tile was ~10-12x) — so the scan maps
 over static row *groups* sized ~``GROUP_BYTES`` of encoded text, keeping
-the working set in the tens of MB while XLA pipelines group g+1's encode
-against group g's conv.
+the working set in the tens of MB.
 """
 
 from __future__ import annotations
@@ -84,7 +80,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Channels beyond this dilute the MXU contraction (every extra channel
+# Channels beyond this dilute the contraction (every extra channel
 # multiplies conv FLOPs); binary-ish pattern sets fall back to the
 # pigeonhole/banded engines.
 ALPHABET_MAX = 16
@@ -94,19 +90,16 @@ ALPHABET_MAX = 16
 # conv reads each m_max times).
 M_MAX_CORR = 512
 
-# "auto" crossover, measured on chip at 256 MB with the ~30 ms/call link
-# latency amortized (DESIGN.md §8). The banded kernel's compare chains
-# scale with pattern bytes while the encode-bound conv stays flat, so
-# corr wins on BIG pattern sets (5.3x at 16x50, 14.4x at 64x50) and on
-# LONG patterns (2.1x at 2x50; 1.1x on the reference set, m_max = 50),
-# while the banded kernel keeps short-pattern scans (3.6 GB/s vs 0.6 at
-# 1x10, 3.5 vs 2.9 at 2x16). "auto" routes corr when the distinct
-# pattern bytes total >= AUTO_MIN_WORK or the longest pattern >=
-# AUTO_MIN_MMAX; engine="corr" bypasses both and forces the conv.
+# "auto" crossover: corr takes a k = 0 scan when the distinct pattern bytes
+# total >= AUTO_MIN_WORK or the longest pattern >= AUTO_MIN_MMAX (the
+# banded DP's work grows with pattern bytes, the conv's stays flat);
+# engine="corr" bypasses both. Set from a previous accelerator's
+# measurements; not measured on the H100.
 AUTO_MIN_WORK = 256
 AUTO_MIN_MMAX = 48
 
-# Target bytes of one-hot text materialized per mapped row group.
+# Target bytes of encoded text materialized per mapped row group (not
+# measured on the H100).
 GROUP_BYTES = 64 << 20
 
 
@@ -138,9 +131,7 @@ def _encode_planes(rg: jax.Array, alph: jax.Array, cbits: int) -> jax.Array:
     zero tap term can never help a window reach the ``B * m_p``
     threshold, so out-of-alphabet text is excluded exactly as one-hot's
     zero row excluded it). Cost per byte: 2C compares + B selects — vs
-    one-hot's C compare/selects producing C (not B) output elements,
-    which is what made the encode the k = 0 fast path's roof
-    (DESIGN.md §9(a))."""
+    one-hot's C compare/selects producing C (not B) output elements."""
     eq = rg[:, :, None] == alph[None, None, :]  # (g, L, C)
     valid = jnp.any(eq, axis=-1)  # (g, L)
     code = jnp.sum(
@@ -152,6 +143,23 @@ def _encode_planes(rg: jax.Array, alph: jax.Array, cbits: int) -> jax.Array:
     ) & 1  # (g, L, cbits)
     pm = (2 * bits - 1).astype(jnp.bfloat16)
     return jnp.where(valid[:, :, None], pm, jnp.bfloat16(0.0))
+
+
+def _conv(t: jax.Array, kern: jax.Array, stride: int) -> jax.Array:
+    """The one correlation of this module: ``(g, L, B) * (w, B, N)`` with
+    bf16 ±1 operands and f32 accumulation — exact for integer sums below
+    2^24 (see the module docstring; f32 operands could run as TF32)."""
+    assert t.dtype == jnp.bfloat16 and kern.dtype == jnp.bfloat16, (
+        t.dtype, kern.dtype,
+    )
+    return jax.lax.conv_general_dilated(
+        t,
+        kern,
+        window_strides=(stride,),
+        padding="VALID",
+        dimension_numbers=("NWC", "WIO", "NWC"),
+        preferred_element_type=jnp.float32,
+    )
 
 
 def corr_eligible(
@@ -178,20 +186,14 @@ def corr_eligible(
 def pick_stride(n0: int) -> int:
     """Shift-fold stride ``S`` for a conv with ``n0`` base output channels.
 
-    The MXU's output tile is 128 columns wide; a stride-1 correlation with
-    ``n0`` patterns (or pieces) runs the systolic array at ``n0/128``
-    column utilization. Folding ``S`` *shifted* copies of every pattern
-    into the channel axis and striding the conv by ``S`` computes the
-    identical per-window scores with ``N = n0*S`` columns — ~``S``x the
-    utilization for only ``(m + S - 1)/m``x the FLOPs. Measured on v5e
-    (256 MB, P = 6, m = 50): 2.90 GB/s at S = 1 -> 5.04 GB/s at S = 16
-    (N = 96); N past 128 is flat-to-worse (S = 32/N = 192: 4.75).
-
-    Past ~24 base channels the fold stops paying and then *hurts* — XLA
-    already lowers the wide-N stride-1 conv well, and the strided variant
-    loses to it (same session, 256 MB, m = 50: P = 24: 2.53 -> 3.03 at
-    S = 4; P = 32: 2.38 -> 2.08; P = 48: 2.59 -> 1.81; P = 64:
-    2.36 -> 1.17) — so n0 > 24 keeps stride 1.
+    A stride-1 correlation with few patterns (or pieces) has a narrow
+    output-channel axis, which leaves the contraction's output tile mostly
+    empty. Folding ``S`` *shifted* copies of every pattern into the channel
+    axis and striding the conv by ``S`` computes the identical per-window
+    scores with ``N = n0*S`` channels — ~``S``x the column utilization for
+    only ``(m + S - 1)/m``x the FLOPs. Past ~24 base channels the fold
+    stops paying, so n0 > 24 keeps stride 1. The thresholds were set on a
+    previous accelerator; not measured on the H100.
 
     Strides are powers of two capped at 32 and at N <= 128; every block
     width is a multiple of 128 windows, so divisibility is guaranteed.
@@ -234,7 +236,7 @@ def build_kernel(
     so they never count (the same "no work for padding rows" contract as
     the Pallas kernels). ``stride`` shift-folds the kernel for the
     strided conv (see :func:`pick_stride`); pass the same value to
-    :func:`scan_corr_mxu`.
+    :func:`scan_corr_conv`.
     """
     P, m_max = pat_raw.shape
     B = n_bitplanes(len(alphabet))
@@ -264,7 +266,7 @@ def _group_rows(L: int, C: int, n_rows: int) -> int:
     jax.jit,
     static_argnames=("wf", "m_max", "n_rows", "g_rows", "stride", "p_out"),
 )
-def scan_corr_mxu(
+def scan_corr_conv(
     rows: jax.Array,  # (R, wf + halo) uint8 — folded staged corpus rows
     kern: jax.Array,  # (m_max + S - 1, B, P*S) bf16 — shift-folded kernel
     thr: jax.Array,  # (P*S,) f32 — per-channel match thresholds (= m_p)
@@ -278,7 +280,7 @@ def scan_corr_mxu(
     g_rows: int,  # rows per mapped group (static)
     stride: int = 1,  # shift-fold stride S (see pick_stride)
     p_out: int = 0,  # zero-pad the count vector to this length (pattern
-    # tables are padded to a sublane multiple but the conv kernel carries
+    # tables are padded to a multiple of 8 but the conv kernel carries
     # REAL patterns only — all-zero padding columns would still cost MACs)
 ):
     """(max(P, p_out),) int32 exact-match counts for this chunk's
@@ -294,7 +296,7 @@ def scan_corr_mxu(
     With ``stride = S > 1`` the conv strides by S and the kernel carries S
     shifted copies of every pattern (:func:`build_kernel` with the same
     ``stride``): output block ``jb``'s channel ``s*P + p`` is window
-    ``jb*S + s`` of pattern ``p`` — identical scores at ~S x the MXU
+    ``jb*S + s`` of pattern ``p`` — identical scores at ~S x the output
     column utilization. Reads reach ``wf + m_max - 2`` regardless of S,
     so any ``halo >= m_max - 1`` staging row suffices.
     """
@@ -313,14 +315,7 @@ def scan_corr_mxu(
     def one_group(args):
         rg, g = args  # (g_rows, L) uint8, () int32
         t = _encode_planes(rg, alph, kern.shape[1])
-        corr = jax.lax.conv_general_dilated(
-            t,
-            kern,
-            window_strides=(S,),
-            padding="VALID",
-            dimension_numbers=("NWC", "WIO", "NWC"),
-            preferred_element_type=jnp.float32,
-        )  # (g_rows, (L - wk)//S + 1, P*S)
+        corr = _conv(t, kern, S)  # (g_rows, (L - wk)//S + 1, P*S)
         match = corr[:, : wf // S, :] >= thr[None, None, :]
         if S > 1:  # block jb, channel s*P+p  ->  window jb*S + s
             match = match.reshape(g_rows, wf // S, S, -1).reshape(
@@ -363,9 +358,9 @@ def scan_corr_batch(
     max(P, p_out)) int32`` — the same contract as
     ``apm.ops.pallas_kernel.scan_folded_pallas_batch``, so
     ``Scanner.count_batch`` can route eligible k = 0 batches through the
-    MXU (the reference's many-pattern serving shape is one CUDA thread
+    conv (the reference's many-pattern serving shape is one CUDA thread
     per pattern, ``src/database_over_ranks.cu:26-29``; here extra
-    patterns ride idle MXU columns — DESIGN.md §8).
+    patterns are extra output channels of one conv).
 
     Window ownership arrives PRE-RESOLVED as ``limits[r]`` (the caller
     owns the virtual-window-space bookkeeping: ``clip(bound - start -
@@ -388,14 +383,7 @@ def scan_corr_batch(
     def one_group(args):
         rg, lim = args  # (g_rows, L) uint8, (g_rows,) int32
         t = _encode_planes(rg, alph, kern.shape[1])
-        corr = jax.lax.conv_general_dilated(
-            t,
-            kern,
-            window_strides=(S,),
-            padding="VALID",
-            dimension_numbers=("NWC", "WIO", "NWC"),
-            preferred_element_type=jnp.float32,
-        )
+        corr = _conv(t, kern, S)
         match = corr[:, : wf // S, :] >= thr[None, None, :]
         if S > 1:  # block jb, channel s*P+p  ->  window jb*S + s
             match = match.reshape(g_rows, wf // S, S, -1).reshape(
@@ -424,48 +412,12 @@ def scan_corr_batch(
 # and exact piece matching is the same correlation as above with patterns
 # replaced by pieces. Phase 1 only needs ROW-level candidacy (verification
 # is row-granular), so the sound reduction is simply "any piece of pattern
-# p hits anywhere in the row (+halo)" — a superset of the filter kernel's
-# drift-consistent shift-OR, exact after verification, and much cheaper on
-# the conv path. The halo contract round_up(m_max + 2k, 128) provably
+# p hits anywhere in the row (+halo)" — a superset of a per-window
+# drift-consistent shift test, exact after verification. The halo contract round_up(m_max + 2k, 128) provably
 # covers every drifted piece position: the furthest piece start is
 # wf-1 + (m_p - l_last) + k and pieces within a pattern differ by at most
 # one byte in length, so coverage reduces to k + 1 + l_last >= w_kern,
 # which holds with w_kern = l_last(+1) of the longest pattern.
-
-# Minimum piece length for the conv phase 1. Row-any candidacy pays a
-# selectivity penalty vs the shift-OR (~(wf+halo) candidate positions per
-# row instead of ~(2k+1)j per window); at the exact-tier eligibility edge
-# (l = 8, 4^-8 background) that floods every row, so pieces must carry a
-# couple more bytes of selectivity to qualify.
-FP1_LMIN = 10
-
-
-def fp1_conv_eligible(plens, k: int, alphabet_size: int) -> bool:
-    """True when EVERY filtration pattern can run conv phase 1.
-
-    Requirements: k >= 1, a conv-sized alphabet, all patterns exact-tier
-    (kp = 0 — banded-tier pieces tolerate one error, which a correlation
-    cannot express), pieces >= FP1_LMIN long, and the measured corr/banded
-    crossover (heavy or long pattern sets; see AUTO_MIN_WORK).
-    """
-    from .filter_kernel import pieces_of_j, tier_of
-
-    if k < 1 or not (0 < alphabet_size <= ALPHABET_MAX):
-        return False
-    ms = [m for m in plens if m > 0]
-    if not ms:
-        return False
-    for m in ms:
-        tier = tier_of(m, k)
-        if tier is None or tier[1] != 0:
-            return False
-        j = tier[0]
-        if min(length for _, length in pieces_of_j(m, j)) < FP1_LMIN:
-            return False
-        if max(length for _, length in pieces_of_j(m, j)) > M_MAX_CORR:
-            return False
-    return sum(ms) >= AUTO_MIN_WORK or max(ms) >= AUTO_MIN_MMAX
-
 
 def build_piece_kernel(
     pat_raw: np.ndarray, plens, k: int, alphabet, stride: int = 1
@@ -482,7 +434,7 @@ def build_piece_kernel(
     kernel (see :func:`pick_stride`); pass the same value to
     :func:`scan_pieces_conv`.
     """
-    from .filter_kernel import pieces_of_j, tier_of
+    from .filtration import pieces_of_j, tier_of
 
     P, m_max = pat_raw.shape
     B = n_bitplanes(len(alphabet))
@@ -560,14 +512,7 @@ def scan_pieces_conv(
         if S > 1:
             rg = jnp.pad(rg, ((0, 0), (0, S - 1)))
         t = _encode_planes(rg, alph, kern.shape[1])
-        corr = jax.lax.conv_general_dilated(
-            t,
-            kern,
-            window_strides=(S,),
-            padding="VALID",
-            dimension_numbers=("NWC", "WIO", "NWC"),
-            preferred_element_type=jnp.float32,
-        )  # (g_rows, (L + S - 1 - w_kern)//S + 1, N*S)
+        corr = _conv(t, kern, S)  # (g_rows, (L + S - 1 - w_kern)//S + 1, N*S)
         hit = corr >= thr[None, None, :]
         r_abs = g * g_rows + row_in_g  # (g_rows, 1)
         live = jnp.logical_and(
@@ -580,7 +525,10 @@ def scan_pieces_conv(
             hits_n = jnp.sum(
                 hits_n.reshape(g_rows, S, -1), axis=1, dtype=jnp.float32
             )
-        rowpat = hits_n @ owner  # (g_rows, P)
+        # exact: f32 sums of small integers, kept out of TF32
+        rowpat = jnp.matmul(
+            hits_n, owner, precision=jax.lax.Precision.HIGHEST
+        )  # (g_rows, P)
         return rowpat
 
     parts = jax.lax.map(

@@ -2,7 +2,7 @@
 
 The reference's multi-node story is ``salloc -N nodes mpirun`` + every rank
 reading the input file from the shared FS (``database_over_ranks.c:215``,
-Report §4.1). The TPU-native equivalent:
+Report §4.1). The equivalent here:
 
 * :func:`initialize` — ``jax.distributed.initialize()`` replaces
   ``MPI_Init``/``mpirun`` process bootstrap;
@@ -12,8 +12,8 @@ Report §4.1). The TPU-native equivalent:
   every rank slurps the full file), assembles the globally-sharded array
   with ``jax.make_array_from_single_device_arrays``, and runs the same
   jitted ``shard_map`` program as the single-host database strategy. The
-  per-pattern count ``psum`` rides ICI within a slice and DCN across hosts —
-  behind the same program;
+  per-pattern count ``psum`` rides the devices' interconnect (NCCL on
+  GPUs) — behind the same program;
 * host 0 (``jax.process_index() == 0``) computes the EOF tail with the
   oracle and owns printing, mirroring rank 0's role (without being a
   master — all hosts run the same program).
@@ -45,8 +45,9 @@ def initialize(
 ) -> None:
     """Bootstrap the multi-process runtime (MPI_Init analog).
 
-    With no arguments, jax autodetects the cluster environment (TPU pods,
-    SLURM, GKE). No-op when already initialized or single-process.
+    With no arguments, jax autodetects the cluster environment (SLURM,
+    Open MPI, GKE); elsewhere pass all three. No-op when already
+    initialized or single-process.
     """
     if jax.process_count() > 1:
         return  # already initialized
@@ -79,12 +80,13 @@ def count_multihost(scanner: "Scanner", path: str) -> np.ndarray:
 
     Returns the per-pattern counts (valid on every host; host 0 prints).
     """
-    from ..models.pipeline import make_plan
+    from ..models.pipeline import file_reader, finalize_filtration, make_plan
+    from ..ops.fused import MAX_HOT
+    from .strategies import _sharded_corr, sharded_filter_chunks
 
     k, m_max = scanner.k, scanner.m_max
-    backend = scanner._resolve_backend()
     n = os.path.getsize(path)
-    plan = make_plan(scanner, n, backend)
+    plan = scanner.last_plan = make_plan(scanner, n)
     w, wf, halo, dev_bound = plan.w, plan.wf, plan.halo, plan.dev_bound
 
     devices = np.asarray(jax.devices())  # global device order
@@ -96,9 +98,8 @@ def count_multihost(scanner: "Scanner", path: str) -> np.ndarray:
 
     p_pad = scanner._pat.shape[0]
     counts = np.zeros((p_pad,), dtype=np.int64)
-    nw_eff = dev_bound if backend == "pallas" else max(n - k, 0)
-    if nw_eff > 0:
-        s = max(round_up(_cdiv(nw_eff, n_dev), w), w)
+    if dev_bound > 0:
+        s = max(round_up(_cdiv(dev_bound, n_dev), w), w)
         rows_per = s // wf
 
         local_rows = []
@@ -106,154 +107,52 @@ def count_multihost(scanner: "Scanner", path: str) -> np.ndarray:
         for gi, dev in enumerate(devices):
             if dev.process_index != jax.process_index():
                 continue
-            if backend == "pallas":
-                staged = _stage_rows(path, gi * s, rows_per, wf, halo)
-            else:
-                # XLA engine consumes a flat (1, s + halo) byte shard.
-                staged = _read_range(path, gi * s, s + halo).reshape(1, -1)
+            staged = _stage_rows(path, gi * s, rows_per, wf, halo)
             local_rows.append(jax.device_put(staged[None], dev))
             local_starts.append(
                 jax.device_put(np.asarray([gi * s], dtype=np.int32), dev)
             )
-        shard_shape = (
-            (n_dev, rows_per, wf + halo)
-            if backend == "pallas"
-            else (n_dev, 1, s + halo)
-        )
         shards = jax.make_array_from_single_device_arrays(
-            shard_shape, row_sharding, local_rows
+            (n_dev, rows_per, wf + halo), row_sharding, local_rows
         )
         starts = jax.make_array_from_single_device_arrays(
             (n_dev,), start_sharding, local_starts
         )
-        # The Pallas kernel owns windows [0, dev_bound) and the EOF tail is
-        # added below; the XLA engine handles truncation itself, so it gets
-        # the true byte count and no tail.
-        bound_val = dev_bound if backend == "pallas" else n
-        dbound = jax.device_put(np.int32(bound_val), rep)
+        # The device owns windows [0, dev_bound); the EOF tail is added
+        # below.
+        dbound = jax.device_put(np.int32(dev_bound), rep)
         dpat = jax.device_put(scanner._pat, NamedSharding(mesh, P(None, None)))
-        dplen = jax.device_put(scanner._plen, NamedSharding(mesh, P(None)))
-        from ..models.pipeline import file_reader, finalize_filtration
-        from ..ops.fused import MAX_HOT
-        from .strategies import _filter_sharded
 
         if plan.use_corr:
-            dalph = jax.device_put(
-                scanner._corr_alphabet(), NamedSharding(mesh, P(None))
+            counts += _sharded_corr(
+                scanner, mesh, shards, starts, dbound, plan, rows_per
             )
-            if scanner._use_fused_corr(wf, halo):
-                from ..ops.corr_engine import n_bitplanes
-                from ..ops.corr_fused import pick_g, pick_s
-                from .strategies import _corr_fused_sharded
-
-                km_np, thr_np = scanner._corr_fused_tables()
-                l128 = (wf + halo) // 128
-                s_ph = pick_s(scanner.m_max)
-                dev_counts = _corr_fused_sharded(
-                    shards, starts,
-                    jax.device_put(
-                        km_np, NamedSharding(mesh, P(None, None))
-                    ),
-                    jax.device_put(
-                        thr_np, NamedSharding(mesh, P(None, None))
-                    ),
-                    dalph, dbound,
-                    mesh=mesh, wf=wf, l128=l128, n_rows=rows_per,
-                    g=pick_g(rows_per, l128, km_np.shape[1] // s_ph),
-                    p=km_np.shape[1] // s_ph,
-                    c_alpha=len(scanner._corr_alphabet()),
-                    b_planes=n_bitplanes(len(scanner._corr_alphabet())),
-                    s_ph=s_ph,
-                    interpret=scanner.config.interpret,
-                    p_out=scanner._pat.shape[0],
-                )
-            else:
-                from ..ops.corr_engine import _group_rows
-                from .strategies import _corr_sharded
-
-                kern_np, thr_np, corr_stride = scanner._corr_kernel()
-                dkern = jax.device_put(
-                    kern_np, NamedSharding(mesh, P(None, None, None))
-                )
-                dthr = jax.device_put(thr_np, NamedSharding(mesh, P(None)))
-                dev_counts = _corr_sharded(
-                    shards, starts, dkern, dthr, dalph, dbound,
-                    mesh=mesh, wf=wf, m_max=m_max, n_rows=rows_per,
-                    g_rows=_group_rows(
-                        wf + halo, len(scanner._corr_alphabet()), rows_per
-                    ),
-                    stride=corr_stride, p_out=scanner._pat.shape[0],
-                )
-            counts += np.asarray(dev_counts)
         if plan.any_dp:
             dev_counts = _database_sharded(
-                shards,
-                starts,
-                dpat,
-                dplen,
-                dbound,
-                mesh=mesh,
-                backend=backend,
-                k=k,
-                m_max=m_max,
-                w=wf if backend == "pallas" else w,
-                halo=halo,
-                plens=plan.plens_dp,
-                dp_dtype=scanner.config.dp_dtype,
-        alphabet=scanner._dp_alphabet(),
-        dp_impl=scanner.config.dp_impl,
-                interpret=scanner.config.interpret,
+                shards, starts, dpat, dbound,
+                mesh=mesh, k=k, m_max=m_max, wf=wf, plens=plan.plens_dp,
+                dp=plan.dp,
             )
             counts += np.asarray(dev_counts)
         if plan.any_filter:
-            dpat_raw = jax.device_put(
-                scanner._pat_raw, NamedSharding(mesh, P(None, None))
+            # Row maps are device-sharded; only a single process can
+            # fetch them all. Multi-process overflow recovery falls back
+            # to the banded rescan inside finalize_filtration.
+            fchunks, rescan = sharded_filter_chunks(
+                scanner, plan, mesh, shards, starts, dpat, dbound,
+                rows_per=rows_per, s=s, n_dev=n_dev, p_pad=p_pad,
+                single_proc=jax.process_count() == 1,
             )
-            if k == 0:
-                fcnt, _ = _filter_sharded(
-                    shards, starts, dpat_raw, dbound,
-                    mesh=mesh, k=k, m_max=m_max, w=wf, halo=halo,
-                    plens=plan.plens_filter,
-                    interpret=scanner.config.interpret,
-                )
-                counts += np.asarray(fcnt)
-            else:
-                # Row maps are device-sharded; only a single process can
-                # fetch them all. Multi-process overflow recovery falls
-                # back to the banded rescan inside finalize_filtration.
-                from .strategies import sharded_filter_chunks
-
-                fchunks, rescan = sharded_filter_chunks(
-                    scanner, plan, mesh, shards, starts, dpat, dplen,
-                    dpat_raw, dbound,
-                    backend=backend, wf=wf, halo=halo, rows_per=rows_per,
-                    s=s, n_dev=n_dev, p_pad=p_pad,
-                    single_proc=jax.process_count() == 1,
-                )
-                counts += finalize_filtration(
-                    scanner, file_reader(path), plan, n, fchunks,
-                    rescan, max_hot=MAX_HOT,
-                )
+            counts += finalize_filtration(
+                scanner, file_reader(path), plan, n, fchunks,
+                rescan, max_hot=MAX_HOT,
+            )
 
     # EOF tail: tiny; every host computes it identically (no broadcast needed).
-    if backend == "pallas":
-        counts[: scanner.scan_patterns.num_patterns] += _read_tail(
-            path, dev_bound, n, k, scanner
-        )
+    counts[: scanner.scan_patterns.num_patterns] += _read_tail(
+        path, dev_bound, n, k, scanner
+    )
     return counts
-
-
-def _read_range(path: str, start: int, length: int) -> np.ndarray:
-    from ..utils import native
-
-    if native.available():
-        return native.read_range(os.fspath(path), start, length)
-    out = np.zeros(length, dtype=np.uint8)
-    with open(path, "rb") as f:
-        f.seek(start)
-        data = np.frombuffer(f.read(length), dtype=np.uint8)
-    out[: len(data)] = data
-    return out
 
 
 def _read_tail(path: str, dev_bound: int, n: int, k: int, scanner: "Scanner") -> np.ndarray:

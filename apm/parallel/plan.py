@@ -1,16 +1,16 @@
-"""Execution planner: the TPU analog of the reference's runtime cost model.
+"""Execution planner: what remains of the reference's runtime cost model.
 
 The reference picks between its two MPI strategies with a ratio heuristic
 (``getRatio`` at ``src/main.c:21-28``, applied at ``main.c:88-139``; the
 derivation lives in ``Workflow.md:100-271``): it measures how well the
 pattern count divides over active ranks vs over OMP threads and runs the
-strategy that wastes less. On TPU most of that decision dissolves — one
-GSPMD program shards the window axis *and* vectorizes the pattern axis at
-the same time — but two planning decisions remain real:
+strategy that wastes less. Here one jitted program shards the window axis
+*and* vectorizes the pattern axis, so most of that decision dissolves, but
+two planning decisions remain:
 
-* which mesh axis to shard (windows vs patterns) when devices > 1;
-* the kernel block width ``w`` (windows per grid step), which trades VMEM
-  footprint against grid overhead.
+* which axis to shard (windows vs patterns) when devices > 1;
+* the staging block width ``w`` (windows per block of ``ROWS_PER_BLOCK``
+  staged rows), which sets the row width the kernels tile.
 
 Both are derived here from ``(n, m_max, P, k, n_dev)`` — statically, before
 compilation, like the reference's selector (every rank computes the same
@@ -20,8 +20,6 @@ deterministic answer, ``main.c:110-114``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-
-from ..ops.common import round_up
 
 
 def get_ratio(x: float) -> float:
@@ -86,7 +84,7 @@ def choose_strategy(
     Round 1 asserted ``nw < 4*n_dev*1024 and p >= 8*n_dev`` (tiny
     corpus, many patterns) from the then-slow dynamic-length path; the
     measured grid shows that region is a tie, so the rule collapsed to
-    the one measured win (VERDICT r3 ask #4).
+    the one measured win.
 
     **Health warning — CPU-mesh calibration.** The ``p == n_dev`` win
     and ``PATTERNS_NW_MAX`` were measured on an 8-device *virtual CPU
@@ -99,8 +97,8 @@ def choose_strategy(
     silicon before trusting it for multi-chip deployment (DESIGN §3).
 
     ``flat_p_engine=True`` pins database: the k = 0 correlation engine's
-    throughput is flat in P (DESIGN §8 — marginal patterns ride idle MXU
-    columns), so replicating the corpus encode per device is pure loss.
+    cost is flat in P (extra patterns are extra output channels of one
+    conv), so replicating the corpus encode per device is pure loss.
     """
     if n_dev <= 1:
         return "single"
@@ -112,22 +110,32 @@ def choose_strategy(
     return "database_over_devices"
 
 
-def choose_block_windows(nw: int, m_max: int, p: int, k: int) -> int:
-    """Kernel block width: windows per Pallas grid step.
+# Staged rows per block: a block of ``w`` windows is ``ROWS_PER_BLOCK``
+# rows of ``wf = w // ROWS_PER_BLOCK`` windows.
+ROWS_PER_BLOCK = 8
 
-    Larger blocks amortize grid overhead; the VMEM footprint per block is
-    roughly ``p * (2k + 1) * w * 4`` bytes of live DP band (one
-    ``(FOLD, w/FOLD)`` int32 tile per pattern per diagonal) plus temporaries,
-    so cap ``w`` to keep the working set well inside the 16 MB of VMEM.
-    ``p`` should be the number of *distinct* patterns actually scanned.
+# Block-width bounds (windows). The top keeps staging rows at 8192
+# windows — a power of two the DP kernel's tiles divide, and short enough
+# that phase-2 verification of a hot row stays cheap.
+BLOCK_MIN = 1024
+BLOCK_MAX = 65536
+
+
+def choose_block_windows(nw: int, m_max: int, p: int, k: int) -> int:
+    """Staging block width: a power of two in ``[BLOCK_MIN, BLOCK_MAX]``.
+
+    Small corpora get the smallest power of two covering them (less
+    padding); everything else gets ``BLOCK_MAX``. The DP kernel's window
+    tile (``apm.ops.pallas_kernel.pick_tile``) divides every width this
+    returns, and its registers hold one pattern's band at a time, so the
+    width no longer depends on ``p`` or ``k`` (kept in the signature for
+    the planner's callers).
     """
-    budget = 6 << 20  # DP-band budget; leaves room for temps + text tiles
-    band_rows = 2 * k + 2
-    p_eff = max(p, 1)
-    w_cap = budget // (band_rows * p_eff * 4)
-    w = min(65536, max(1024, w_cap))
-    w = round_up(min(w, max(nw, 1)), 1024)
-    return max(1024, w)
+    del m_max, p, k
+    w = BLOCK_MIN
+    while w < min(max(nw, 1), BLOCK_MAX):
+        w *= 2
+    return w
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,11 @@
 """Multi-device distribution strategies (GSPMD / shard_map).
 
-TPU-native re-design of the reference's two MPI strategies. Where the
-reference mails bytes between ranks (``MPI_Bcast``/``Send``/``Recv``,
+Re-design of the reference's two MPI strategies. Where the reference mails
+bytes between ranks (``MPI_Bcast``/``Send``/``Recv``,
 ``src/patterns_over_ranks.c:139-207``, ``src/database_over_ranks.c:119-195``),
 here shards are *placed* on devices via ``jax.sharding.NamedSharding`` and the
 only runtime communication is one ``psum``/gather of the tiny per-pattern
-count vector over ICI.
+count vector (NCCL between GPUs).
 
 * ``database_over_devices`` — the analog of strategy B
   (``src/database_over_ranks.c``): the corpus window axis is sharded across
@@ -16,13 +16,13 @@ count vector over ICI.
   the halo seam (Report §4.3) — every window start is owned by exactly one
   shard.
 * ``patterns_over_devices`` — the analog of strategy A
-  (``src/patterns_over_ranks.c``): the pattern axis is sharded, the corpus is
-  replicated (the Bcast analog, done once by placement); no reduction needed,
-  counts are gathered by the output sharding.
+  (``src/patterns_over_ranks.c``): each device runs the full single-device
+  pipeline over its own pattern group, the corpus placed on every device
+  (the Bcast analog); no reduction needed.
 
-Both strategies compile to a single ``jit`` program; there is no master rank,
-no poison pill, no tag demuxing — the cost model that chose between MPI
-strategies largely dissolves (see apm.parallel.plan for what remains).
+There is no master rank, no poison pill, no tag demuxing — the cost model
+that chose between MPI strategies largely dissolves (see apm.parallel.plan
+for what remains).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops.common import fold_corpus, pad_corpus, round_up
+from ..ops.common import fold_corpus, round_up
 
 if TYPE_CHECKING:  # pragma: no cover
     from ..models.scanner import Scanner
@@ -46,38 +46,28 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "backend", "k", "m_max", "w", "halo", "plens", "dp_dtype", "alphabet", "dp_impl",
-        "interpret"
-    ),
+    jax.jit, static_argnames=("mesh", "k", "m_max", "wf", "plens", "dp")
 )
-def _database_sharded(shards, starts, pat, plen, bound, *, mesh, backend, k, m_max, w, halo, plens, dp_dtype="int32", alphabet=(), dp_impl="auto", interpret=False):
-    def body(shard, start, pat, plen, bound):
-        if backend == "pallas":
-            from ..ops.pallas_kernel import scan_folded_pallas_unrolled
+def _database_sharded(shards, starts, pat, bound, *, mesh, k, m_max, wf, plens, dp):
+    """Sharded banded DP: each device scans its own window shard with the
+    DP step of ``dp`` (the kernel or the plain XLA band), one psum joins
+    the counts."""
+    from ..ops.pallas_kernel import dp_count
 
-            counts = scan_folded_pallas_unrolled(
-                shard[0], pat, bound, start[0],
-                k=k, m_max=m_max, wf=w, halo=halo, plens=plens,
-                dp_dtype=dp_dtype, alphabet=alphabet, dp_impl=dp_impl,
-            interpret=interpret,
-            )
-        else:
-            from ..ops.xla_engine import scan_corpus_xla
-
-            counts = scan_corpus_xla(
-                shard.reshape(-1), pat, plen, bound, start[0], k=k, m_max=m_max, v=w
-            )
+    def body(shard, start, pat, bound):
+        counts = dp_count(
+            shard[0], pat, bound, start[0],
+            k=k, m_max=m_max, wf=wf, plens=plens, dp=dp,
+        )
         return jax.lax.psum(counts, "data")
 
     return jax.shard_map(
         body,
         mesh=mesh,
-        in_specs=(P("data", None, None), P("data"), P(None, None), P(None), P()),
+        in_specs=(P("data", None, None), P("data"), P(None, None), P()),
         out_specs=P(None),
         check_vma=False,
-    )(shards, starts, pat, plen, bound)
+    )(shards, starts, pat, bound)
 
 
 @functools.partial(
@@ -90,12 +80,12 @@ def _corr_sharded(
     shards, starts, kern, thr, alph, bound, *, mesh, wf, m_max, n_rows,
     g_rows, stride=1, p_out=0,
 ):
-    """Sharded k = 0 MXU correlation scan (apm.ops.corr_engine): each
-    device convolves its own window shard, one psum joins the counts."""
-    from ..ops.corr_engine import scan_corr_mxu
+    """Sharded k = 0 correlation scan (apm.ops.corr_engine): each device
+    convolves its own window shard, one psum joins the counts."""
+    from ..ops.corr_engine import scan_corr_conv
 
     def body(shard, start, kern, thr, alph, bound):
-        counts = scan_corr_mxu(
+        counts = scan_corr_conv(
             shard[0], kern, thr, alph, bound, start[0],
             wf=wf, m_max=m_max, n_rows=n_rows, g_rows=g_rows,
             stride=stride, p_out=p_out,
@@ -117,76 +107,15 @@ def _corr_sharded(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "mesh", "wf", "l128", "n_rows", "g", "p", "c_alpha", "b_planes",
-        "s_ph", "interpret", "p_out",
+        "mesh", "k", "m_max", "wf", "plens", "w_kern", "n_rows", "g_rows",
+        "fp1_stride", "dp",
     ),
 )
-def _corr_fused_sharded(
-    shards, starts, km, thr, alph, bound, *, mesh, wf, l128, n_rows,
-    g, p, c_alpha, b_planes, s_ph=64, interpret=False, p_out=0,
+def _filter_verify_conv_sharded(
+    shards, starts, pkern, pthr, owner, alph, pat, bound, *, mesh, k, m_max,
+    wf, plens, w_kern, n_rows, g_rows, fp1_stride, dp,
 ):
-    """Sharded fused-Pallas k = 0 correlation (apm.ops.corr_fused): each
-    device runs the phase-split im2col kernel on its own window shard,
-    one psum joins the counts."""
-    from ..ops.corr_fused import scan_corr_fused
-
-    def body(shard, start, km, thr, alph, bound):
-        counts = scan_corr_fused(
-            shard[0], km, thr, alph, bound, start[0],
-            wf=wf, l128=l128, n_rows=n_rows, g=g, p=p,
-            c_alpha=c_alpha, b_planes=b_planes, s_ph=s_ph,
-            interpret=interpret, p_out=p_out,
-        )
-        return jax.lax.psum(counts, "data")
-
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(
-            P("data", None, None), P("data"), P(None, None), P(None, None),
-            P(None), P(),
-        ),
-        out_specs=P(None),
-        check_vma=False,
-    )(shards, starts, km, thr, alph, bound)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "k", "m_max", "w", "halo", "plens", "interpret"),
-)
-def _filter_sharded(shards, starts, pat_raw, bound, *, mesh, k, m_max, w, halo, plens, interpret=False):
-    """Sharded phase-1 filtration: psum'd totals + per-shard row maps."""
-    from ..ops.filter_kernel import scan_filter_pallas
-
-    def body(shard, start, pat_raw, bound):
-        fcnt, rowmap = scan_filter_pallas(
-            shard[0], pat_raw, bound, start[0],
-            k=k, m_max=m_max, wf=w, halo=halo, plens=plens,
-            interpret=interpret,
-        )
-        return jax.lax.psum(fcnt, "data"), rowmap[None]
-
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P("data", None, None), P("data"), P(None, None), P()),
-        out_specs=(P(None), P("data", None, None)),
-        check_vma=False,
-    )(shards, starts, pat_raw, bound)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "k", "m_max", "w", "halo", "plens", "dp_dtype", "alphabet", "dp_impl", "interpret"
-    ),
-)
-def _filter_verify_sharded(
-    shards, starts, pat_raw, pat, bound, *, mesh, k, m_max, w, halo, plens,
-    dp_dtype="int32", alphabet=(), dp_impl="auto", interpret=False,
-):
-    """Sharded fused filtration + on-device verification (k >= 1).
+    """Sharded filtration phase 1 + on-device verification (k >= 1).
 
     Each device verifies its own shard's hot rows (gathered straight from
     the device-resident staging rows, see ``apm.ops.fused``); the
@@ -195,56 +124,17 @@ def _filter_verify_sharded(
     ``all_gather``-replicated so every process sees identical values (no
     host ever reads another host's shard). Everything the host needs
     comes back as ONE replicated int32 vector — layout ``[fcnt (P) |
-    vcnt (P) | n_hot (D) | clip_starts (D*MAX_CLIP)]`` — so it costs one
-    fetch. Row maps stay device-sharded, fetched only by single-process
-    overflow recovery.
+    vcnt (P) | n_hot (D) | clip_starts (D*MAX_CLIP)]``. Row maps stay
+    device-sharded, fetched only by single-process overflow recovery.
     """
-    from ..ops.fused import filter_verify_chunk
-
-    def body(shard, start, pat_raw, pat, bound):
-        packed, rowmap = filter_verify_chunk(
-            shard[0], pat_raw, pat, bound, start[0],
-            k=k, m_max=m_max, wf=w, halo=halo, plens=plens,
-            dp_dtype=dp_dtype, alphabet=alphabet, dp_impl=dp_impl,
-            interpret=interpret,
-        )
-        return _collective_pack(packed, pat_raw.shape[0]), rowmap[None]
-
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(
-            P("data", None, None), P("data"), P(None, None), P(None, None),
-            P(),
-        ),
-        out_specs=(P(None), P("data", None, None)),
-        check_vma=False,
-    )(shards, starts, pat_raw, pat, bound)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "k", "m_max", "w", "halo", "plens", "w_kern", "n_rows",
-        "g_rows", "fp1_stride", "dp_dtype", "alphabet", "dp_impl", "interpret",
-    ),
-)
-def _filter_verify_conv_sharded(
-    shards, starts, pkern, pthr, owner, alph, pat, bound, *, mesh, k, m_max,
-    w, halo, plens, w_kern, n_rows, g_rows, fp1_stride=1, dp_dtype="int32",
-    alphabet=(), dp_impl="auto", interpret=False,
-):
-    """:func:`_filter_verify_sharded` with conv phase 1
-    (``apm.ops.fused.filter_verify_chunk_conv``) — same packed layout."""
     from ..ops.fused import filter_verify_chunk_conv
 
     def body(shard, start, pkern, pthr, owner, alph, pat, bound):
         packed, rowmap = filter_verify_chunk_conv(
             shard[0], pkern, pthr, owner, alph, pat, bound, start[0],
-            k=k, m_max=m_max, wf=w, halo=halo, plens=plens,
+            k=k, m_max=m_max, wf=wf, plens=plens,
             w_kern=w_kern, n_rows=n_rows, g_rows=g_rows,
-            fp1_stride=fp1_stride, dp_dtype=dp_dtype, alphabet=alphabet, dp_impl=dp_impl,
-            interpret=interpret,
+            fp1_stride=fp1_stride, dp=dp,
         )
         return _collective_pack(packed, pat.shape[0]), rowmap[None]
 
@@ -258,45 +148,6 @@ def _filter_verify_conv_sharded(
         out_specs=(P(None), P("data", None, None)),
         check_vma=False,
     )(shards, starts, pkern, pthr, owner, alph, pat, bound)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "k", "m_max", "w", "halo", "plens", "l128", "n_rows", "g",
-        "n_slots", "p_pat", "c_alpha", "b_planes", "dp_dtype", "alphabet",
-        "dp_impl", "interpret",
-    ),
-)
-def _filter_verify_fused_sharded(
-    shards, starts, pkm, pthr, powner, alph, pat, bound, *, mesh, k, m_max,
-    w, halo, plens, l128, n_rows, g, n_slots, p_pat, c_alpha, b_planes,
-    dp_dtype="int32", alphabet=(), dp_impl="auto", interpret=False,
-):
-    """:func:`_filter_verify_conv_sharded` with the fused Pallas phase 1
-    (``apm.ops.fused.filter_verify_chunk_fused``) — same packed layout."""
-    from ..ops.fused import filter_verify_chunk_fused
-
-    def body(shard, start, pkm, pthr, powner, alph, pat, bound):
-        packed, rowmap = filter_verify_chunk_fused(
-            shard[0], pkm, pthr, powner, alph, pat, bound, start[0],
-            k=k, m_max=m_max, wf=w, halo=halo, plens=plens,
-            l128=l128, n_rows=n_rows, g=g, n_slots=n_slots, p_pat=p_pat,
-            c_alpha=c_alpha, b_planes=b_planes, dp_dtype=dp_dtype,
-            alphabet=alphabet, dp_impl=dp_impl, interpret=interpret,
-        )
-        return _collective_pack(packed, pat.shape[0]), rowmap[None]
-
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(
-            P("data", None, None), P("data"), P(None, None), P(None, None),
-            P(None, None), P(None), P(None, None), P(),
-        ),
-        out_specs=(P(None), P("data", None, None)),
-        check_vma=False,
-    )(shards, starts, pkm, pthr, powner, alph, pat, bound)
 
 
 def _collective_pack(packed, p: int):
@@ -331,96 +182,37 @@ def _unpack_sharded(packed, p: int, n_dev: int):
 
 
 def sharded_filter_chunks(
-    scanner, plan, mesh, shards, starts, dpat, dplen, dpat_raw, dbound,
-    *, backend, wf, halo, rows_per, s, n_dev, p_pad, single_proc,
+    scanner, plan, mesh, shards, starts, dpat, dbound,
+    *, rows_per, s, n_dev, p_pad, single_proc,
 ):
-    """Dispatch the sharded fused filtration (k >= 1) and assemble
+    """Dispatch the sharded filtration (k >= 1) and assemble
     ``finalize_filtration``'s inputs.
 
     One body for both distribution entry points (``database_over_devices``
-    and ``count_multihost`` — round 1 carried hand-copies that diverged,
-    VERDICT r1 #1): picks conv vs shift-OR phase 1 from the plan, fetches
-    the replicated packed vector once, and returns ``(fchunks, rescan)``
-    where ``fchunks`` carry a lazy row-map fetch (single-process only —
-    multi-process overflow recovery uses the banded ``rescan``, since no
-    host can address another host's shards).
+    and ``count_multihost``): fetches the replicated packed vector once,
+    and returns ``(fchunks, rescan)`` where ``fchunks`` carry a lazy
+    row-map fetch (single-process only — multi-process overflow recovery
+    uses the banded ``rescan``, since no host can address another host's
+    shards).
     """
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
     from ..models.pipeline import FilterChunk
+    from ..ops.corr_engine import _group_rows
 
-    k, m_max = scanner.k, scanner.m_max
-    if (
-        plan.fp1_conv
-        and scanner.config.corr_impl == "fused"
-        and scanner._use_fused_corr(wf, halo, pieces=True)
-    ):
-        from ..ops.corr_engine import n_bitplanes
-        from ..ops.corr_fused import S_FUSED, pick_g
-
-        km_np, thr_np, ow64_np = scanner._fp1_fused_tables(
-            plan.plens_filter
-        )
-        l128 = (wf + halo) // 128
-        n_slots = km_np.shape[1] // S_FUSED
-        packed, rowmaps = _filter_verify_fused_sharded(
-            shards, starts,
-            jax.device_put(km_np, NamedSharding(mesh, P(None, None))),
-            jax.device_put(thr_np, NamedSharding(mesh, P(None, None))),
-            jax.device_put(ow64_np, NamedSharding(mesh, P(None, None))),
-            jax.device_put(
-                scanner._corr_alphabet(), NamedSharding(mesh, P(None))
-            ),
-            dpat, dbound,
-            mesh=mesh, k=k, m_max=m_max, w=wf, halo=halo,
-            plens=plan.plens_filter,
-            l128=l128, n_rows=rows_per,
-            g=pick_g(rows_per, l128, n_slots), n_slots=n_slots,
-            p_pat=ow64_np.shape[1],
-            c_alpha=len(scanner._corr_alphabet()),
-            b_planes=n_bitplanes(len(scanner._corr_alphabet())),
-            dp_dtype=scanner.config.dp_dtype,
-            alphabet=scanner._dp_alphabet(),
-            dp_impl=scanner.config.dp_impl,
-            interpret=scanner.config.interpret,
-        )
-    elif plan.fp1_conv:
-        from ..ops.corr_engine import _group_rows
-
-        pk_np, pt_np, ow_np, fp1_stride = scanner._fp1_kernel(
-            plan.plens_filter
-        )
-        packed, rowmaps = _filter_verify_conv_sharded(
-            shards, starts,
-            jax.device_put(pk_np, NamedSharding(mesh, P(None, None, None))),
-            jax.device_put(pt_np, NamedSharding(mesh, P(None))),
-            jax.device_put(ow_np, NamedSharding(mesh, P(None, None))),
-            jax.device_put(
-                scanner._corr_alphabet(), NamedSharding(mesh, P(None))
-            ),
-            dpat, dbound,
-            mesh=mesh, k=k, m_max=m_max, w=wf, halo=halo,
-            plens=plan.plens_filter,
-            w_kern=pk_np.shape[0], n_rows=rows_per,
-            g_rows=_group_rows(
-                wf + halo, len(scanner._corr_alphabet()), rows_per
-            ),
-            fp1_stride=fp1_stride,
-            dp_dtype=scanner.config.dp_dtype,
-            alphabet=scanner._dp_alphabet(),
-            dp_impl=scanner.config.dp_impl,
-            interpret=scanner.config.interpret,
-        )
-    else:
-        packed, rowmaps = _filter_verify_sharded(
-            shards, starts, dpat_raw, dpat, dbound,
-            mesh=mesh, k=k, m_max=m_max, w=wf, halo=halo,
-            plens=plan.plens_filter,
-            dp_dtype=scanner.config.dp_dtype,
-            alphabet=scanner._dp_alphabet(),
-            dp_impl=scanner.config.dp_impl,
-            interpret=scanner.config.interpret,
-        )
+    k, m_max, wf = scanner.k, scanner.m_max, plan.wf
+    pk_np, pt_np, ow_np, fp1_stride = scanner._fp1_kernel(plan.plens_filter)
+    alph = scanner._corr_alphabet()
+    packed, rowmaps = _filter_verify_conv_sharded(
+        shards, starts,
+        jax.device_put(pk_np, NamedSharding(mesh, P(None, None, None))),
+        jax.device_put(pt_np, NamedSharding(mesh, P(None))),
+        jax.device_put(ow_np, NamedSharding(mesh, P(None, None))),
+        jax.device_put(alph, NamedSharding(mesh, P(None))),
+        dpat, dbound,
+        mesh=mesh, k=k, m_max=m_max, wf=wf, plens=plan.plens_filter,
+        w_kern=pk_np.shape[0], n_rows=rows_per,
+        g_rows=_group_rows(wf + plan.halo, len(alph), rows_per),
+        fp1_stride=fp1_stride, dp=plan.dp,
+    )
 
     rm_cache: dict = {}
 
@@ -444,48 +236,13 @@ def sharded_filter_chunks(
 
     def rescan() -> np.ndarray:
         dev = _database_sharded(
-            shards, starts, dpat, dplen, dbound,
-            mesh=mesh, backend=backend, k=k, m_max=m_max,
-            w=wf, halo=halo, plens=plan.plens_filter,
-            dp_dtype=scanner.config.dp_dtype,
-            alphabet=scanner._dp_alphabet(),
-            dp_impl=scanner.config.dp_impl,
-            interpret=scanner.config.interpret,
+            shards, starts, dpat, dbound,
+            mesh=mesh, k=k, m_max=m_max, wf=wf, plens=plan.plens_filter,
+            dp=plan.dp,
         )
         return np.asarray(dev).astype(np.int64)
 
     return fchunks, rescan
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "backend", "k", "m_max", "w", "halo", "interpret"),
-)
-def _patterns_sharded(corpus, pat, plen, bound, *, mesh, backend, k, m_max, w, halo, interpret):
-    """XLA-backend pattern-axis sharding (dynamic lengths are free there).
-
-    The Pallas backend does NOT go through here: ``shard_map`` traces one
-    body for every device, which would force the generic dynamic-length
-    kernel — ``count_patterns_over_devices`` uses placement-parallel
-    per-device dispatch with static lengths instead.
-    """
-    del backend  # only the XLA engine runs under shard_map
-
-    def body(corpus, pat, plen, bound):
-        from ..ops.xla_engine import scan_corpus_xla
-
-        return scan_corpus_xla(
-            corpus, pat, plen, bound, jnp.int32(0), k=k, m_max=m_max, v=w
-        )
-
-    corpus_spec = P(None, None) if corpus.ndim == 2 else P(None)
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(corpus_spec, P("pat", None), P("pat"), P()),
-        out_specs=P("pat"),
-        check_vma=False,
-    )(corpus, pat, plen, bound)
 
 
 def count_database_over_devices(scanner: "Scanner", buf: np.ndarray, n_dev: int) -> np.ndarray:
@@ -495,153 +252,76 @@ def count_database_over_devices(scanner: "Scanner", buf: np.ndarray, n_dev: int)
     with the device window bound; the EOF tail is counted host-side once
     (see ``Scanner.tail_counts``).
     """
+    from ..models.pipeline import buf_reader, finalize_filtration, make_plan
+    from ..ops.fused import MAX_HOT
+
     k, m_max = scanner.k, scanner.m_max
-    backend = scanner._resolve_backend()
     n = len(buf)
-    w = scanner.block_windows_for(n)
+    plan = scanner.last_plan = make_plan(scanner, n)
+    wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
 
     devices = np.asarray(jax.devices()[:n_dev])
     mesh = Mesh(devices, ("data",))
     rep = NamedSharding(mesh, P())
-    dpat = jax.device_put(scanner._pat, NamedSharding(mesh, P(None, None)))
-    dplen = jax.device_put(scanner._plen, NamedSharding(mesh, P(None)))
-
     p_pad = scanner._pat.shape[0]
     counts = np.zeros((p_pad,), dtype=np.int64)
-
-    if backend == "pallas":
-        from ..models.pipeline import (
-            FilterChunk,
-            buf_reader,
-            finalize_filtration,
-            make_plan,
+    if dev_bound > 0:
+        s = max(round_up(_cdiv(dev_bound, n_dev), plan.w), plan.w)
+        rows_per = s // wf
+        shards = np.stack(
+            [fold_corpus(buf, d * s, rows_per, wf, halo) for d in range(n_dev)]
         )
-        from ..ops.fused import MAX_HOT
-
-        plan = make_plan(scanner, n, backend)
-        wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
-        if dev_bound > 0:
-            s = max(round_up(_cdiv(dev_bound, n_dev), plan.w), plan.w)
-            rows_per = s // wf
-            shards = np.stack(
-                [fold_corpus(buf, d * s, rows_per, wf, halo) for d in range(n_dev)]
-            )
-            starts = np.arange(n_dev, dtype=np.int32) * s
-            dshards = jax.device_put(
-                shards, NamedSharding(mesh, P("data", None, None))
-            )
-            dstarts = jax.device_put(starts, NamedSharding(mesh, P("data")))
-            dbound = jax.device_put(np.int32(dev_bound), rep)
-            if plan.use_corr:
-                dalph = jax.device_put(
-                    scanner._corr_alphabet(), NamedSharding(mesh, P(None))
-                )
-                if scanner._use_fused_corr(wf, halo):
-                    from ..ops.corr_engine import n_bitplanes
-                    from ..ops.corr_fused import pick_g, pick_s
-
-                    km_np, thr_np = scanner._corr_fused_tables()
-                    l128 = (wf + halo) // 128
-                    s_ph = pick_s(scanner.m_max)
-                    dev = _corr_fused_sharded(
-                        dshards, dstarts,
-                        jax.device_put(
-                            km_np, NamedSharding(mesh, P(None, None))
-                        ),
-                        jax.device_put(
-                            thr_np, NamedSharding(mesh, P(None, None))
-                        ),
-                        dalph, dbound,
-                        mesh=mesh, wf=wf, l128=l128, n_rows=rows_per,
-                        g=pick_g(rows_per, l128, km_np.shape[1] // s_ph),
-                        p=km_np.shape[1] // s_ph,
-                        c_alpha=len(scanner._corr_alphabet()),
-                        b_planes=n_bitplanes(len(scanner._corr_alphabet())),
-                        s_ph=s_ph,
-                        interpret=scanner.config.interpret,
-                        p_out=p_pad,
-                    )
-                else:
-                    from ..ops.corr_engine import _group_rows
-
-                    kern_np, thr_np, corr_stride = scanner._corr_kernel()
-                    dkern = jax.device_put(
-                        kern_np, NamedSharding(mesh, P(None, None, None))
-                    )
-                    dthr = jax.device_put(
-                        thr_np, NamedSharding(mesh, P(None))
-                    )
-                    dev = _corr_sharded(
-                        dshards, dstarts, dkern, dthr, dalph, dbound,
-                        mesh=mesh, wf=wf, m_max=m_max, n_rows=rows_per,
-                        g_rows=_group_rows(
-                            wf + halo, len(scanner._corr_alphabet()),
-                            rows_per,
-                        ),
-                        stride=corr_stride, p_out=p_pad,
-                    )
-                counts += np.asarray(dev)
-            if plan.any_dp:
-                dev = _database_sharded(
-                    dshards, dstarts, dpat, dplen, dbound,
-                    mesh=mesh, backend=backend, k=k, m_max=m_max, w=wf,
-                    halo=halo, plens=plan.plens_dp,
-                    dp_dtype=scanner.config.dp_dtype,
-                    alphabet=scanner._dp_alphabet(),
-                    dp_impl=scanner.config.dp_impl,
-                    interpret=scanner.config.interpret,
-                )
-                counts += np.asarray(dev)
-            if plan.any_filter:
-                dpat_raw = jax.device_put(
-                    scanner._pat_raw, NamedSharding(mesh, P(None, None))
-                )
-                if k == 0:
-                    fcnt, _ = _filter_sharded(
-                        dshards, dstarts, dpat_raw, dbound,
-                        mesh=mesh, k=k, m_max=m_max, w=wf, halo=halo,
-                        plens=plan.plens_filter,
-                        interpret=scanner.config.interpret,
-                    )
-                    counts += np.asarray(fcnt)
-                else:
-                    fchunks, rescan = sharded_filter_chunks(
-                        scanner, plan, mesh, dshards, dstarts, dpat,
-                        dplen, dpat_raw, dbound,
-                        backend=backend, wf=wf, halo=halo,
-                        rows_per=rows_per, s=s, n_dev=n_dev, p_pad=p_pad,
-                        single_proc=True,
-                    )
-                    counts += finalize_filtration(
-                        scanner, buf_reader(buf), plan, n, fchunks,
-                        rescan, max_hot=MAX_HOT,
-                    )
-        counts[: scanner.scan_patterns.num_patterns] += scanner.tail_counts(
-            buf, dev_bound
+        starts = np.arange(n_dev, dtype=np.int32) * s
+        dshards = jax.device_put(
+            shards, NamedSharding(mesh, P("data", None, None))
         )
-        return counts
-
-    halo = m_max
-    nw = max(n - k, 0)
-    s = max(round_up(_cdiv(max(nw, 1), n_dev), w), w)
-    shards = np.zeros((n_dev, 1, s + halo), dtype=np.uint8)
-    for d in range(n_dev):
-        lo = d * s
-        hi = min(lo + s + halo, n)
-        if lo < n:
-            shards[d, 0, : hi - lo] = buf[lo:hi]
-    starts = np.arange(n_dev, dtype=np.int32) * s
-    dev = _database_sharded(
-        jax.device_put(shards, NamedSharding(mesh, P("data", None, None))),
-        jax.device_put(starts, NamedSharding(mesh, P("data"))),
-        dpat,
-        dplen,
-        jax.device_put(np.int32(n), rep),
-        mesh=mesh, backend=backend, k=k, m_max=m_max, w=w, halo=halo,
-        plens=scanner._plens_static,
-        interpret=scanner.config.interpret,
+        dstarts = jax.device_put(starts, NamedSharding(mesh, P("data")))
+        dbound = jax.device_put(np.int32(dev_bound), rep)
+        dpat = jax.device_put(scanner._pat, NamedSharding(mesh, P(None, None)))
+        if plan.use_corr:
+            counts += _sharded_corr(
+                scanner, mesh, dshards, dstarts, dbound, plan, rows_per
+            )
+        if plan.any_dp:
+            dev = _database_sharded(
+                dshards, dstarts, dpat, dbound,
+                mesh=mesh, k=k, m_max=m_max, wf=wf, plens=plan.plens_dp,
+                dp=plan.dp,
+            )
+            counts += np.asarray(dev)
+        if plan.any_filter:
+            fchunks, rescan = sharded_filter_chunks(
+                scanner, plan, mesh, dshards, dstarts, dpat, dbound,
+                rows_per=rows_per, s=s, n_dev=n_dev, p_pad=p_pad,
+                single_proc=True,
+            )
+            counts += finalize_filtration(
+                scanner, buf_reader(buf), plan, n, fchunks, rescan,
+                max_hot=MAX_HOT,
+            )
+    counts[: scanner.scan_patterns.num_patterns] += scanner.tail_counts(
+        buf, dev_bound
     )
-    return np.asarray(dev).astype(np.int64)
+    return counts
+
+
+def _sharded_corr(scanner, mesh, shards, starts, bound, plan, rows_per):
+    """k = 0 correlation over a window-sharded corpus (one psum)."""
+    from ..ops.corr_engine import _group_rows
+
+    kern_np, thr_np, corr_stride = scanner._corr_kernel()
+    alph = scanner._corr_alphabet()
+    dev = _corr_sharded(
+        shards, starts,
+        jax.device_put(kern_np, NamedSharding(mesh, P(None, None, None))),
+        jax.device_put(thr_np, NamedSharding(mesh, P(None))),
+        jax.device_put(alph, NamedSharding(mesh, P(None))),
+        bound,
+        mesh=mesh, wf=plan.wf, m_max=scanner.m_max, n_rows=rows_per,
+        g_rows=_group_rows(plan.wf + plan.halo, len(alph), rows_per),
+        stride=corr_stride, p_out=scanner._pat.shape[0],
+    )
+    return np.asarray(dev)
 
 
 def _pattern_groups(scanner: "Scanner", n_dev: int):
@@ -663,75 +343,39 @@ def _pattern_groups(scanner: "Scanner", n_dev: int):
 def count_patterns_over_devices(scanner: "Scanner", buf: np.ndarray, n_dev: int) -> np.ndarray:
     """Shard the pattern axis over ``n_dev`` devices; corpus replicated.
 
-    Pallas backend: placement-parallel per-device scans. ``shard_map``
-    traces ONE body for every device, which would force the generic
-    dynamic-length kernel — but reference strategy A has *zero* runtime
-    communication (each rank owns its patterns end to end,
+    Placement-parallel per-device scans: reference strategy A has *zero*
+    runtime communication (each rank owns its patterns end to end,
     ``patterns_over_ranks.c:139-207``), so nothing requires a single
-    program. Instead each device gets a length-balanced pattern group and
-    runs the FULL single-device pipeline (length-segmented unrolled DP +
-    fused filtration, static lengths per group) with its inputs placed on
-    that device; dispatch happens from one thread per device so device
-    work overlaps, and only the tiny per-group count vectors come back.
+    program. Each device gets a length-balanced pattern group and runs the
+    FULL single-device pipeline (static lengths per group) with its inputs
+    placed on that device; dispatch happens from one thread per device so
+    device work overlaps, and only the tiny per-group count vectors come
+    back.
     """
-    k, m_max = scanner.k, scanner.m_max
-    backend = scanner._resolve_backend()
+    from concurrent.futures import ThreadPoolExecutor
+
     n = len(buf)
     w = scanner.block_windows_for(n)
+    groups = _pattern_groups(scanner, n_dev)
+    devices = jax.devices()[: len(groups)]
+    subs = scanner._pattern_shard_scanners(groups, block_windows=w)
+    fp = scanner._corpus_fp(buf)
 
-    if backend == "pallas":
-        from concurrent.futures import ThreadPoolExecutor
+    def run(d: int) -> np.ndarray:
+        with jax.default_device(devices[d]):
+            return subs[d]._count_pipeline(buf, n, fp=fp)
 
-        groups = _pattern_groups(scanner, n_dev)
-        devices = jax.devices()[: len(groups)]
-        subs = scanner._pattern_shard_scanners(groups, block_windows=w)
-        fp = scanner._corpus_fp(buf)
-
-        def run(d: int) -> np.ndarray:
-            with jax.default_device(devices[d]):
-                return subs[d]._count_pallas(buf, n, fp=fp)
-
-        if len(groups) == 1:
-            outs = [run(0)]
-        else:
-            with ThreadPoolExecutor(len(groups)) as ex:
-                outs = list(ex.map(run, range(len(groups))))
-        counts = np.zeros((scanner._pat.shape[0],), dtype=np.int64)
-        for d, g in enumerate(groups):
-            for slot, pi in enumerate(g):
-                counts[pi] = outs[d][slot]
-        return counts
-
-    # XLA backend: one GSPMD program, pattern axis sharded (dynamic
-    # lengths are free here). The pattern axis only needs to divide by
-    # n_dev — the XLA engine computes the DP band for every table row
-    # regardless of plen, so rounding to 8*n_dev (round 2) multiplied
-    # the real work 4x at P = 16, n_dev = 8 (the "patterns collapse" in
-    # bench/scaling_cpu8.jsonl; VERDICT r2 weak #3). Sublane alignment
-    # is a Pallas-layout concern that doesn't apply here.
-    p_pad = scanner._pat.shape[0]
-    p_shard = round_up(p_pad, n_dev)
-    pat = np.zeros((p_shard, scanner._pat.shape[1]), dtype=np.uint8)
-    pat[:p_pad] = scanner._pat
-    plen = np.zeros((p_shard,), dtype=np.int32)
-    plen[:p_pad] = scanner._plen
-
-    devices = np.asarray(jax.devices()[:n_dev])
-    mesh = Mesh(devices, ("pat",))
-    dpat = jax.device_put(pat, NamedSharding(mesh, P("pat", None)))
-    dplen = jax.device_put(plen, NamedSharding(mesh, P("pat")))
-    rep = NamedSharding(mesh, P())
-
-    n_pad = max(round_up(max(n - k, 0), w), w)
-    corpus = pad_corpus(buf, n_pad, m_max)
-    dev = _patterns_sharded(
-        jax.device_put(corpus, NamedSharding(mesh, P(None))),
-        dpat, dplen,
-        jax.device_put(np.int32(n), rep),
-        mesh=mesh, backend=backend, k=k, m_max=m_max, w=w, halo=m_max,
-        interpret=scanner.config.interpret,
-    )
-    return np.asarray(dev).astype(np.int64)
+    if len(groups) == 1:
+        outs = [run(0)]
+    else:
+        with ThreadPoolExecutor(len(groups)) as ex:
+            outs = list(ex.map(run, range(len(groups))))
+    scanner.last_plan = subs[0].last_plan
+    counts = np.zeros((scanner._pat.shape[0],), dtype=np.int64)
+    for d, g in enumerate(groups):
+        for slot, pi in enumerate(g):
+            counts[pi] = outs[d][slot]
+    return counts
 
 
 def count_distributed(scanner: "Scanner", buf: np.ndarray, strategy: str, n_dev: int) -> np.ndarray:

@@ -13,14 +13,17 @@ from typing import Optional
 
 @dataclass
 class ApmConfig:
-    # Backend for the per-block scan: "pallas" (TPU kernel), "xla" (pure jnp,
-    # portable — also the CPU / interpret-mode path), or "auto".
+    # How the banded DP step runs: "auto" (the Pallas/Triton kernel on a
+    # GPU, the plain XLA band on the CPU), "pallas" (the kernel; needs a
+    # GPU or interpret=True), or "xla" (the plain XLA band anywhere — the
+    # reference the kernel is timed against). Decided in one place,
+    # apm.ops.pallas_kernel.resolve_impl; nothing else depends on it.
     backend: str = "auto"
-    # Run the Pallas kernel in interpreter mode (the fake-backend analog of the
-    # reference's TESTPERFORMANCE_NO_LEVENSHTEIN stub, utils.c:77-79).
+    # Run the Pallas kernel in the Pallas interpreter (CPU testing; never
+    # chosen implicitly).
     interpret: bool = False
-    # Windows per kernel block. None = let the planner pick
-    # (apm.parallel.plan.choose_block_windows). Must be a multiple of 1024.
+    # Windows per staging block (ROWS_PER_BLOCK rows). None = let the
+    # planner pick (apm.parallel.plan.choose_block_windows).
     block_windows: Optional[int] = None
     # Corpus bytes handed to one jitted chunk invocation (host-side loop
     # unit; bounds host staging + device transfer per call and keeps every
@@ -37,31 +40,19 @@ class ApmConfig:
     max_devices: Optional[int] = None
     # Scan each distinct pattern once and expand counts to duplicates.
     dedup_patterns: bool = True
-    # Scan engine on the Pallas backend: "auto"/"filter" run the pigeonhole
-    # filtration kernel (exact-piece candidates + targeted verification)
-    # for eligible patterns and the banded DP kernel for the rest; "dp"
-    # forces the banded kernel everywhere; "corr" forces the k = 0 MXU
-    # one-hot-correlation engine (apm.ops.corr_engine — "auto" picks it
-    # at k = 0 for small-alphabet pattern sets automatically) and raises
-    # when the scan is ineligible for it.
+    # Scan engine: "auto" routes by input (k = 0 correlation when eligible,
+    # k >= 1 pigeonhole filtration for the patterns its piece correlation
+    # takes, the banded DP for the rest — apm.models.pipeline.make_plan);
+    # "dp" forces the banded DP everywhere; "corr" forces the k = 0
+    # correlation engine (apm.ops.corr_engine) and raises when the scan is
+    # ineligible for it.
     engine: str = "auto"
-    # k = 0 correlation implementation: "auto" runs the fused Pallas
-    # phase-split-im2col kernel (apm.ops.corr_fused — encode + MXU matmul
-    # + count in one kernel; measured 1.5-1.8x the XLA conv at P <= 16,
-    # a wash at P = 64) whenever it is eligible (m_max <= 65) and the XLA
-    # conv (apm.ops.corr_engine) otherwise; "conv" pins the XLA conv;
-    # "fused" demands the Pallas kernel and raises when ineligible.
-    corr_impl: str = "auto"
-    # DP cell dtype for the Pallas kernel: "int32" (the only option on TPU
-    # hardware — v5e has no packed 16/8-bit vector compares, DESIGN.md §1),
-    # or "int16"/"int8" as CPU/interpret-mode test layouts (the <= k verdict
-    # is exact for all of them; int8 re-enables clamping at k+1).
-    dp_dtype: str = "int32"
     # Banded-DP implementation: "auto" picks the bit-parallel (Myers/Hyyro)
-    # band once it beats the classic diagonal band (k >= 3, small pattern
-    # alphabet); "band" forces the classic per-diagonal min-chains; "myers"
-    # forces the bit-parallel band wherever it is representable
-    # (1 <= k <= 14, alphabet <= 8 distinct bytes, int32 cells).
+    # band once it beats the classic diagonal band (measured crossover,
+    # apm.ops.pallas_kernel.MYERS_KMIN_AUTO); "band" forces the classic
+    # per-diagonal min-chains; "myers" forces the bit-parallel band
+    # wherever it is representable (1 <= k <= 14, alphabet <= 8 distinct
+    # bytes). The plain XLA band has no bit-parallel mode.
     dp_impl: str = "auto"
     # Keep the staged corpus device-resident between count() calls (keyed by
     # a full-content hash) so repeated scans skip host->device transfer.
@@ -74,17 +65,16 @@ class ApmConfig:
     # Byte budget for the device-resident corpus cache. None = a quarter of
     # the device's reported HBM (fallback 4 GiB when unknown).
     cache_bytes: Optional[int] = None
-    # Pre-compile the scan kernels for this corpus size on a background
+    # Pre-compile the scan programs for this corpus size on a background
     # daemon thread at Scanner construction (service startup absorbs the
-    # minutes-long first TPU compile while the host finishes loading).
-    # None = no prewarm. Join with Scanner.prewarm_join(); a count() that
+    # first compile while the host finishes loading). None = no prewarm. Join with Scanner.prewarm_join(); a count() that
     # arrives first simply shares the compile (XLA compiles are
     # thread-safe and deduplicated).
     prewarm_bytes: Optional[int] = None
-    # Blocks per count_batch kernel call (group bucket). None = 128: groups
-    # dispatch back-to-back so staging/transfer of group g+1 overlaps the
-    # kernel on group g. Raise on transfer-starved links, lower for small
-    # batches to cut padding.
+    # Blocks (of ROWS_PER_BLOCK rows) per count_batch device call (group
+    # bucket). None = 128: groups dispatch back-to-back so staging and
+    # transfer of group g+1 overlap the device work on group g. Lower for
+    # small batches to cut padding.
     batch_blocks: Optional[int] = None
 
     def validate(self) -> "ApmConfig":
@@ -97,12 +87,8 @@ class ApmConfig:
             "patterns_over_devices",
         ):
             raise ValueError(f"unknown strategy {self.strategy!r}")
-        if self.engine not in ("auto", "dp", "filter", "corr"):
+        if self.engine not in ("auto", "dp", "corr"):
             raise ValueError(f"unknown engine {self.engine!r}")
-        if self.corr_impl not in ("auto", "conv", "fused"):
-            raise ValueError(f"unknown corr_impl {self.corr_impl!r}")
-        if self.dp_dtype not in ("int32", "int16", "int8"):
-            raise ValueError(f"unknown dp_dtype {self.dp_dtype!r}")
         if self.dp_impl not in ("auto", "band", "myers"):
             raise ValueError(f"unknown dp_impl {self.dp_impl!r}")
         if self.cache_bytes is not None and self.cache_bytes < 0:

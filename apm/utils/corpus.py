@@ -110,3 +110,59 @@ def boundary_straddling_corpus(
         b += shard_width
     plant(corpus, pattern, positions, k=k, seed=seed)
     return corpus, positions
+
+
+# The reference's .fa files hold ACGT text in 50-byte lines (49 bases plus
+# a newline); its smoke test searches one 32-byte pattern that occurs
+# nowhere plus five copies of one 50-byte line of the file.
+FA_LINE = 50
+ABSENT_LEN = 32
+
+
+def reference_shaped(
+    n: int,
+    seed: int = 0,
+    exact: int = 4,
+    fuzzy: int = 0,
+    max_subs: int = 2,
+):
+    """A seeded corpus shaped like the reference's ``.fa`` files.
+
+    Random ``ACGT`` with ``\\n`` closing every :data:`FA_LINE`-byte line,
+    plus one random line planted at ``exact`` line-aligned slots verbatim
+    and at ``fuzzy`` more with 1..``max_subs`` base substitutions (the
+    newline is never touched). Returns ``(corpus, line, absent, plants)``:
+    ``line`` is the planted 50-byte line, ``absent`` a 32-byte pattern that
+    occurs nowhere (it carries an ``N``, which the corpus never holds), and
+    ``plants`` the sorted ``(position, substitutions)`` of every plant.
+    """
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    corpus = bases[rng.integers(0, 4, size=n, dtype=np.uint8)]
+    corpus[FA_LINE - 1 :: FA_LINE] = ord("\n")
+    line = bases[rng.integers(0, 4, size=FA_LINE)]
+    line[-1] = ord("\n")
+    absent = bases[rng.integers(0, 4, size=ABSENT_LEN)]
+    absent[ABSENT_LEN // 2] = ord("N")
+    n_lines = n // FA_LINE
+    want = exact + fuzzy
+    if want > n_lines:
+        raise ValueError(f"{want} plants do not fit {n_lines} lines")
+    slots: List[int] = []
+    seen = set()
+    while len(slots) < want:
+        s = int(rng.integers(0, n_lines))
+        if s not in seen:
+            seen.add(s)
+            slots.append(s)
+    plants = []
+    for i, s in enumerate(slots):
+        w = line.copy()
+        subs = 0
+        if i >= exact:
+            subs = int(rng.integers(1, max_subs + 1))
+            for j in rng.choice(FA_LINE - 1, size=subs, replace=False):
+                w[j] = bases[(np.searchsorted(bases, w[j]) + 1 + rng.integers(0, 3)) % 4]
+        corpus[s * FA_LINE : (s + 1) * FA_LINE] = w
+        plants.append((s * FA_LINE, subs))
+    return corpus, bytes(line), bytes(absent), sorted(plants)

@@ -3,10 +3,10 @@
 The reference's observability is wall-clock brackets (``gettimeofday`` at
 ``sequential.c:102,147``, ``MPI_Wtime`` at ``patterns_over_ranks.c:135,222``)
 plus compile-time ``printf`` gates (``APM_INFO``/``APM_DEBUG``,
-``patterns_over_ranks.c:27-31``). The TPU-native equivalents:
+``patterns_over_ranks.c:27-31``). The equivalents here:
 
 * :func:`trace` — context manager around ``jax.profiler`` producing a full
-  XLA/TPU trace viewable in TensorBoard/Perfetto (replaces external kernel
+  host + device trace viewable in TensorBoard/Perfetto (replaces external kernel
   timing, SURVEY.md §5 "Tracing / profiling");
 * :class:`ScanStats` / :class:`Meter` — bytes/s throughput accounting, the
   north-star metric (corpus GB/s/chip, BASELINE.md);

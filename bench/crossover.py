@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""Measure the patterns- vs database-over-devices crossover (VERDICT r3
-"do this" #4).
+"""Measure the patterns- vs database-over-devices crossover.
 
 The planner's auto rule (`apm/parallel/plan.py choose_strategy`) decides
 between reference strategy A (shard the pattern axis, corpus replicated)
@@ -13,7 +12,7 @@ pattern count) grid on the 8-device virtual CPU mesh — the same mesh the
 tests run on — and prints the measured win/loss matrix plus the implied
 gate.
 
-What transfers to real multi-chip TPU hardware and what doesn't: the
+What transfers to real multi-chip hardware and what doesn't: the
 grid's *relative* strategy ranking is driven by per-strategy overheads
 that exist identically on any mesh (strategy B pays halo bytes + a psum
 per scan and its shard must be >= one block; strategy A pays corpus

@@ -5,9 +5,7 @@ into one parameterized driver.
 
 Each point measures warm end-to-end Scanner throughput for a
 (corpus, #patterns, k, strategy) combination and emits one JSON line
-carrying min/median/max over the reps (variance discipline, VERDICT r2
-weak #2) and roofline/MFU fields (``apm.utils.roofline``); a summary
-table prints at the end.
+carrying min/median/max over the reps; a summary table prints at the end.
 
 Usage::
 
@@ -58,10 +56,10 @@ def run_scaling(args, jax, np, apm, ApmConfig) -> int:
     n x single-chip).
 
     A ``scaling_interpret`` configuration additionally runs the REAL
-    Pallas kernels (interpret mode) under the same 8-device shard_map —
-    covering the sharded pallas dispatch path the XLA points cannot.
+    Pallas kernel (interpret mode) under the same 8-device shard_map —
+    covering the sharded kernel dispatch path the XLA points cannot.
     """
-    backend = "xla" if jax.devices()[0].platform == "cpu" else "pallas"
+    backend = "auto"
     n_avail = len(jax.devices())
     devices = [d for d in (1, 2, 4, 8) if d <= n_avail]
     size = (1 << 20) if args.quick else (args.size_mb << 20)
@@ -117,8 +115,8 @@ def run_scaling(args, jax, np, apm, ApmConfig) -> int:
 
     run_points("scaling", {"backend": backend}, corpus, "xla")
     if jax.devices()[0].platform == "cpu" and not args.no_interpret:
-        # Sharded-pallas coverage: the real kernels in interpret mode are
-        # ~100x slower than compiled XLA, so this point uses a small
+        # Sharded-kernel coverage: the real kernel in interpret mode is
+        # far slower than compiled XLA, so this point uses a small
         # corpus — it validates the sharded dispatch path and measures
         # its overhead shape, not absolute throughput.
         small = corpus[: 1 << 20]
@@ -166,21 +164,15 @@ def main() -> int:
 
     import jax
 
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat and "," not in plat:
-        jax.config.update("jax_platforms", plat)
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("APM_COMPILE_CACHE", "/root/repo/.jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from apm.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
 
     import apm
     from apm.utils.config import ApmConfig
     from apm.utils.oracle import count_matches
-    from apm.utils.roofline import mfu_fields
 
     if args.scaling:
         return run_scaling(args, jax, np, apm, ApmConfig)
@@ -188,15 +180,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     alpha = np.frombuffer(b"ACGT\n", dtype=np.uint8)
 
-    dna = "/root/reference/dna"
     corpora = {}
-    if os.path.isdir(dna):
-        corpora["medium"] = apm.read_input_file(
-            os.path.join(dna, "small_chrY_medium.fa")
-        )
-        corpora["big"] = apm.read_input_file(
-            os.path.join(dna, "small_chrY_bigger.fa")
-        )
     if not args.quick:
         corpora["synth64M"] = alpha[rng.integers(0, 5, size=64 << 20)]
     else:
@@ -207,7 +191,7 @@ def main() -> int:
 
     grid_pat = [1, 8] if args.quick else [1, 6, 8]
     grid_k = [0, 1] if args.quick else [0, 1, 4]
-    backend = "xla" if jax.devices()[0].platform == "cpu" else "pallas"
+    backend = "auto"
     session = _sess()
 
     results = []
@@ -234,12 +218,6 @@ def main() -> int:
                     "seconds_max": round(st["max"], 5),
                     "mb_per_s": round(len(corpus) / st["med"] / 1e6, 2),
                 }
-                if backend == "pallas":
-                    rec.update(
-                        mfu_fields(
-                            sc, len(corpus), len(corpus) / st["med"]
-                        )
-                    )
                 results.append(rec)
                 line = json.dumps(rec)
                 print(line, flush=True)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """Multi-device / multi-host scan example.
 
-Single host with several chips: the Scanner shards the window axis over
+Single host with several GPUs: the Scanner shards the window axis over
 every visible device automatically (strategy "database_over_devices").
-Multi-host (one process per host, e.g. a TPU pod):
+Multi-host (one process per host; jax autodetects SLURM / Open MPI
+clusters, elsewhere pass the coordinator to ``multihost.initialize``):
 
-    # on every host (jax autodetects the cluster):
+    # on every host:
     python examples/distributed_scan.py /path/to/corpus.fa
 
 Each host stages only the byte ranges its own devices scan — no host ever
@@ -15,16 +16,12 @@ materializes the whole corpus. Simulate multiple devices anywhere with:
         python examples/distributed_scan.py
 """
 
-import os
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import jax
-
-plat = os.environ.get("JAX_PLATFORMS")
-if plat and "," not in plat:
-    jax.config.update("jax_platforms", plat)
+import numpy as np
 
 import apm
 from apm.parallel import multihost
@@ -32,11 +29,16 @@ from apm.utils.config import ApmConfig
 
 
 def main() -> int:
-    path = sys.argv[1] if len(sys.argv) > 1 else "/root/reference/dna/small_chrY_x100.fa"
+    if len(sys.argv) > 1:
+        path = sys.argv[1]
+    else:  # a seeded reference-shaped corpus
+        from apm.utils.corpus import reference_shaped
+
+        path = "distributed_scan_demo.fa"
+        np.asarray(reference_shaped(1 << 20, seed=0)[0]).tofile(path)
     multihost.initialize()  # no-op single-process
     patterns = [b"GATTACA" * 3, b"CATCATCAT"]
-    backend = "xla" if jax.devices()[0].platform == "cpu" else "pallas"
-    scanner = apm.Scanner(patterns, k=1, config=ApmConfig(backend=backend))
+    scanner = apm.Scanner(patterns, k=1, config=ApmConfig())
     counts = multihost.count_multihost(scanner, path)
     if jax.process_index() == 0:  # host 0 prints (rank-0 analog)
         print(f"devices={jax.device_count()} processes={jax.process_count()}")

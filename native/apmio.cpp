@@ -1,6 +1,6 @@
-// apmio — native corpus I/O for the TPU approximate-pattern-matching runtime.
+// apmio — native corpus I/O for the approximate-pattern-matching runtime.
 //
-// TPU-native replacement for the reference's host-side I/O layer
+// Replacement for the reference's host-side I/O layer
 // (read_input_file, src/utils.c:12-68): an mmap-backed whole-file loader plus
 // a halo-aware shard slicer used when feeding per-host overlapping corpus
 // shards on multi-host meshes. Exposed to Python via ctypes (apm/utils/native.py).

@@ -60,9 +60,7 @@ def main() -> None:
 
     pipeline.finalize_filtration = _spy_fin
 
-    cfg = ApmConfig(
-        backend="pallas", interpret=True, engine="filter", block_windows=1024
-    )
+    cfg = ApmConfig(backend="pallas", interpret=True, block_windows=1024)
     sc = Scanner(patterns, int(k), cfg)
     counts = count_multihost(sc, corpus_path)
     with open(out_json, "w") as f:

@@ -1,8 +1,8 @@
 """Device-corpus cache correctness: full-content keys and byte bounds.
 
 Round 1's sampling fingerprint (~192 bytes) could serve stale device rows
-after a localized in-place mutation (ADVICE r1 #2) and the LRU was capped
-by entry count, not bytes (ADVICE r1 #4). These tests pin the fixes.
+after a localized in-place mutation and the LRU was capped
+by entry count, not bytes. These tests pin the fixes.
 """
 
 import numpy as np
@@ -22,7 +22,7 @@ def test_inplace_mutation_invalidates_cache():
     the new content."""
     data = random_dna(100_000, seed=7)
     pat = bytes(data[5000:5030].tobytes())  # exact match at 5000
-    sc = Scanner([pat], 0, ApmConfig(engine="filter", **PALLAS))
+    sc = Scanner([pat], 0, ApmConfig(engine="dp", **PALLAS))
     before = sc.count(data).tolist()
     assert before == count_matches(data, [pat], 0)
     # kill the match with a single-byte edit off the old sample stride
@@ -37,7 +37,7 @@ def test_second_corpus_same_length_not_conflated():
     data2 = data1.copy()
     data2[30_001] ^= 1  # differs in one mid-stride byte
     pat = bytes(data1[30_000:30_020].tobytes())
-    sc = Scanner([pat], 0, ApmConfig(engine="filter", **PALLAS))
+    sc = Scanner([pat], 0, ApmConfig(engine="dp", **PALLAS))
     c1 = sc.count(data1).tolist()
     c2 = sc.count(data2).tolist()
     assert c1 == count_matches(data1, [pat], 0)
@@ -99,7 +99,7 @@ def test_count_correct_after_freezing_and_new_buffer():
     """End-to-end: scans on a frozen buffer and a same-shape successor
     (possibly recycling the id) stay content-correct."""
     pat = b"TTTTTTTTTTGG"
-    sc = Scanner([pat], 0, ApmConfig(engine="filter", **PALLAS))
+    sc = Scanner([pat], 0, ApmConfig(engine="dp", **PALLAS))
     a = random_dna(30_000, seed=14).copy()
     a[100 : 100 + len(pat)] = np.frombuffer(pat, np.uint8)
     a.setflags(write=False)

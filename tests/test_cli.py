@@ -30,8 +30,11 @@ def out_lines_sans_timing(stdout: str):
 
 
 @pytest.fixture(scope="module")
-def easy(dna_dir):
-    return os.path.join(dna_dir, "easy.fa")
+def easy(tmp_path_factory):
+    """The reference's ``easy.fa`` (digits on one line)."""
+    path = tmp_path_factory.mktemp("dna") / "easy.fa"
+    path.write_bytes(b"123123123456456\n")
+    return str(path)
 
 
 def test_cli_easy_reference_format(easy):
@@ -103,3 +106,25 @@ def test_cli_parallel_variant_truncates_echo(easy):
         "--devices", "2", "--no-truncate-echo",
     )
     assert f"pattern <{long_pat}>:" in r3.stdout
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_gpu(tmp_path, alone):
+    """chip_smoke.py exits non-zero and prints no result line without a
+    GPU, and in a directory holding nothing of the repo but itself."""
+    import shutil
+
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        shutil.copy(script, tmp_path)
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run(
+        [sys.executable, script], capture_output=True, text=True, cwd=cwd,
+        env=env, timeout=300,
+    )
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -1,6 +1,7 @@
-"""Conformance + gating tests for the k = 0 MXU correlation engine
-(apm.ops.corr_engine): one-hot text * one-hot pattern conv == exact-match
-counts, bit-for-bit with the oracle like every other engine."""
+"""Conformance + gating tests for the correlation engines
+(apm.ops.corr_engine): the ±1 bit-plane conv == exact-match counts at
+k = 0, and the piece conv as filtration phase 1 at k >= 1, bit-for-bit
+with the oracle like every other engine."""
 
 import numpy as np
 import pytest
@@ -27,21 +28,21 @@ def test_engine_selection_and_forcing():
     # AUTO_MIN_WORK) auto routes corr; below it the banded kernel wins.
     big = [bytes(random_pattern(50, seed=s)) for s in range(10)]
     sc = Scanner(big, 0, _cfg(engine="auto"))
-    assert make_plan(sc, len(corpus), "pallas").engine == "corr"
+    assert make_plan(sc, len(corpus)).engine == "corr"
     small = [b"ACGT", b"GATTACA"]
     sc = Scanner(small, 0, _cfg(engine="auto"))
-    assert not make_plan(sc, len(corpus), "pallas").use_corr
+    assert not make_plan(sc, len(corpus)).use_corr
     # one long pattern is enough: the banded chain scales with m_max
     long1 = [bytes(random_pattern(60, seed=99))]
     sc = Scanner(long1, 0, _cfg(engine="auto"))
-    assert make_plan(sc, len(corpus), "pallas").use_corr
+    assert make_plan(sc, len(corpus)).use_corr
     sc = Scanner(small, 0, _cfg(engine="corr"))  # forced: any size
-    assert make_plan(sc, len(corpus), "pallas").use_corr
+    assert make_plan(sc, len(corpus)).use_corr
     sc = Scanner(big, 0, _cfg(engine="dp"))
-    assert make_plan(sc, len(corpus), "pallas").engine == "dp"
+    assert make_plan(sc, len(corpus)).engine == "dp"
     # k >= 1 never routes corr
     sc = Scanner(big, 1, _cfg(engine="auto"))
-    assert not make_plan(sc, len(corpus), "pallas").use_corr
+    assert not make_plan(sc, len(corpus)).use_corr
 
 
 @pytest.mark.parametrize("seed", [0, 7])
@@ -58,11 +59,10 @@ def test_corr_matches_oracle_mixed_lengths(seed):
     exp = count_matches(corpus, pats, 0)
     got = Scanner(pats, 0, _cfg(engine="corr")).count(corpus).tolist()
     assert got == exp
-    # and against the other engines
+    # and against the other engines: the kernel and the plain XLA band
     assert Scanner(pats, 0, _cfg(engine="dp")).count(corpus).tolist() == exp
-    assert (
-        Scanner(pats, 0, _cfg(engine="filter")).count(corpus).tolist() == exp
-    )
+    xla = _cfg(engine="dp", backend="xla", interpret=False)
+    assert Scanner(pats, 0, xla).count(corpus).tolist() == exp
 
 
 def test_corr_chunked_and_cached():
@@ -92,7 +92,7 @@ def test_corr_sharded_database_strategy():
     cfg = _cfg(engine="corr", strategy="database_over_devices")
     sc = Scanner(pats, 0, cfg)
     assert sc.count(corpus).tolist() == exp
-    assert make_plan(sc, len(corpus), "pallas").use_corr
+    assert make_plan(sc, len(corpus)).use_corr
 
 
 def test_corr_binary_safe_alphabet():
@@ -141,36 +141,41 @@ def test_corr_dense_matches():
 
 
 def test_fp1_conv_plan_gating():
-    """fp1_conv routes only exact-tier, long-piece, above-crossover sets."""
+    """Filtration takes exactly the exact-tier, long-piece patterns of an
+    above-crossover set; everything else runs the banded DP."""
     n = 300000
     pats = [bytes(random_pattern(120, seed=s)) for s in range(3)]
-    plan = make_plan(Scanner(pats, 1, _cfg(engine="auto")), n, "pallas")
-    assert plan.fp1_conv and any(plan.plens_filter)
-    # engine="filter" pins the classic shift-OR phase 1
-    sc = Scanner(pats, 1, _cfg(engine="filter"))
-    assert not make_plan(sc, n, "pallas").fp1_conv
-    # one short-piece pattern (m=18, k=1 -> 9-byte pieces < FP1_LMIN)
-    # disqualifies the whole set
+    plan = make_plan(Scanner(pats, 1, _cfg(engine="auto")), n)
+    assert plan.any_filter and not plan.any_dp
+    # engine="dp" pins the banded DP for every pattern
+    sc = Scanner(pats, 1, _cfg(engine="dp"))
+    assert not make_plan(sc, n).any_filter
+    # a short-piece pattern (m=18, k=1 -> 9-byte pieces < FP1_LMIN) runs
+    # the banded DP; the long ones stay filtered
     mixed = pats + [bytes(random_pattern(18, seed=9))]
-    sc = Scanner(mixed, 1, _cfg(engine="auto"))
-    assert not make_plan(sc, n, "pallas").fp1_conv
-    # k=0 is the corr engine's territory, never conv phase 1
+    plan = make_plan(Scanner(mixed, 1, _cfg(engine="auto")), n)
+    assert plan.fmask == (True, True, True, False) + (False,) * 4
+    assert plan.plens_dp[3] == 18
+    # k=0 is the corr engine's territory, never filtration
     sc = Scanner(pats, 0, _cfg(engine="auto"))
-    assert not make_plan(sc, n, "pallas").fp1_conv
+    assert not make_plan(sc, n).any_filter
     # banded-tier patterns (one-error pieces) cannot run on a correlation
     sc = Scanner([bytes(random_pattern(90, seed=10))], 6, _cfg(engine="auto"))
-    plan6 = make_plan(sc, n, "pallas")
-    assert any(plan6.plens_filter) and not plan6.fp1_conv
-    # wide alphabets have no one-hot channel budget
+    plan6 = make_plan(sc, n)
+    assert not plan6.any_filter and plan6.any_dp
+    # wide alphabets have no channel budget
     wide = [bytes(range(64, 64 + 30)) + bytes(random_pattern(90, seed=11))]
     sc = Scanner(wide, 1, _cfg(engine="auto"))
-    assert not make_plan(sc, n, "pallas").fp1_conv
+    assert not make_plan(sc, n).any_filter
+    # below the crossover (short set) filtration does not pay
+    sc = Scanner([bytes(random_pattern(30, seed=12))], 1, _cfg(engine="auto"))
+    assert not make_plan(sc, n).any_filter
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
 def test_fp1_conv_matches_oracle(k):
-    """Conv phase 1 + shared device verification == oracle == classic
-    filter kernel, with planted k-error matches."""
+    """Conv phase 1 + shared device verification == oracle == the banded
+    DP over every window, with planted k-error matches."""
     corpus = random_corpus(60000, seed=50 + k)
     pats = [
         bytes(random_pattern(120, seed=60 + k)),
@@ -182,12 +187,12 @@ def test_fp1_conv_matches_oracle(k):
             [500 + 7000 * i, 30000 + 128 * i, 59000], k=k, seed=80 + k + i,
         )
     sc = Scanner(pats, k, _cfg(engine="auto"))
-    assert make_plan(sc, len(corpus), "pallas").fp1_conv
+    assert make_plan(sc, len(corpus)).any_filter
     exp = count_matches(corpus, pats, k)
     assert sum(exp) >= 4
     assert sc.count(corpus).tolist() == exp
-    got_f = Scanner(pats, k, _cfg(engine="filter")).count(corpus).tolist()
-    assert got_f == exp
+    got_dp = Scanner(pats, k, _cfg(engine="dp")).count(corpus).tolist()
+    assert got_dp == exp
 
 
 def test_fp1_conv_dense_overflow_recovery():
@@ -196,7 +201,7 @@ def test_fp1_conv_dense_overflow_recovery():
     corpus = np.full(40000, ord("A"), dtype=np.uint8)
     pats = [b"A" * 108 + b"C" * 12]  # fp1-eligible, every row goes hot
     sc = Scanner(pats, 1, _cfg(engine="auto"))
-    assert make_plan(sc, len(corpus), "pallas").fp1_conv
+    assert make_plan(sc, len(corpus)).any_filter
     exp = count_matches(corpus, pats, 1)
     assert sc.count(corpus).tolist() == exp
 
@@ -225,7 +230,7 @@ def test_fp1_conv_sharded_and_multihost():
     assert sum(exp) >= 6
     cfg = _cfg(engine="auto", strategy="database_over_devices")
     sc = Scanner(pats, k, cfg)
-    assert make_plan(sc, len(corpus), "pallas").fp1_conv
+    assert make_plan(sc, len(corpus)).any_filter
     assert sc.count(corpus).tolist() == exp
     with tempfile.NamedTemporaryFile(suffix=".fa", delete=False) as f:
         f.write(corpus.tobytes())
@@ -241,7 +246,7 @@ def test_fp1_conv_sharded_and_multihost():
 def test_corr_group_padding_boundary():
     """Row count not divisible by the group size exercises the group-pad
     mask (windows past n_rows must not count)."""
-    from apm.ops.corr_engine import _group_rows, build_alphabet, build_kernel, scan_corr_mxu
+    from apm.ops.corr_engine import _group_rows, build_alphabet, build_kernel, scan_corr_conv
     import jax.numpy as jnp
 
     corpus = random_corpus(9000, seed=14)
@@ -259,7 +264,7 @@ def test_corr_group_padding_boundary():
     kern, thr = build_kernel(pat_raw, (3,), alph)
     for g_rows in (7, 8, n_rows):  # 7 does not divide n_rows
         got = np.asarray(
-            scan_corr_mxu(
+            scan_corr_conv(
                 jnp.asarray(rows), jnp.asarray(kern), jnp.asarray(thr),
                 jnp.asarray(alph),
                 jnp.asarray(bound, jnp.int32), jnp.asarray(0, jnp.int32),
@@ -279,7 +284,7 @@ def test_strided_shift_fold_equivalence():
     bit-identical counts to stride = 1 — including at the window bound,
     on group-pad boundaries, and with mixed pattern lengths."""
     from apm.ops.corr_engine import (
-        build_alphabet, build_kernel, pick_stride, scan_corr_mxu,
+        build_alphabet, build_kernel, pick_stride, scan_corr_conv,
     )
     import jax.numpy as jnp
 
@@ -310,7 +315,7 @@ def test_strided_shift_fold_equivalence():
             len(pats) * stride,
         )
         outs[stride] = np.asarray(
-            scan_corr_mxu(
+            scan_corr_conv(
                 jnp.asarray(rows), jnp.asarray(kern), jnp.asarray(thr),
                 jnp.asarray(alph),
                 jnp.asarray(bound, jnp.int32), jnp.asarray(0, jnp.int32),
@@ -366,3 +371,48 @@ def test_strided_pieces_conv_equivalence():
     assert f1.sum() > 0 and r1.any()
     assert f8.tolist() == f1.tolist()
     assert np.array_equal(r8, r1)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_piece_conv_rows_cover_matches(k):
+    """Phase 1 soundness against the oracle: every staging row holding a
+    window within distance k of a pattern is flagged by the piece
+    correlation (the row map is a superset), so phase 2 can miss nothing."""
+    from apm.ops.corr_engine import (
+        _group_rows, build_alphabet, build_piece_kernel, scan_pieces_conv,
+    )
+    from apm.utils.oracle import banded_distances
+    import jax.numpy as jnp
+
+    corpus = random_corpus(24000, seed=30 + k, alphabet=b"ACGT")
+    pats = [bytes(random_pattern(60, seed=31 + k)), bytes(random_pattern(55, seed=32 + k))]
+    for i, p in enumerate(pats):
+        plant(corpus, np.frombuffer(p, np.uint8), [700 + 9000 * i, 15000 + 77 * i],
+              k=k, seed=33 + k + i)
+    plens = tuple(len(p) for p in pats)
+    m_max = max(plens)
+    wf, halo = 512, 256
+    bound = len(corpus) - m_max + 1
+    n_rows = -(-bound // wf)
+    rows = np.zeros((n_rows, wf + halo), np.uint8)
+    for r in range(n_rows):
+        seg = corpus[r * wf : r * wf + wf + halo]
+        rows[r, : len(seg)] = seg
+    raw = np.zeros((2, m_max), np.uint8)
+    for i, p in enumerate(pats):
+        raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+    alph = build_alphabet(pats)
+    kern, thr, owner = build_piece_kernel(raw, plens, k, alph)
+    fcnt, rowmap = scan_pieces_conv(
+        jnp.asarray(rows), jnp.asarray(kern), jnp.asarray(thr),
+        jnp.asarray(owner), jnp.asarray(alph),
+        jnp.asarray(bound, jnp.int32), jnp.asarray(0, jnp.int32),
+        wf=wf, w_kern=kern.shape[0], n_rows=n_rows,
+        g_rows=_group_rows(wf + halo, len(alph), n_rows),
+    )
+    rowmap = np.asarray(rowmap)
+    for i, p in enumerate(pats):
+        hit = np.nonzero(banded_distances(corpus, p, k)[:bound] <= k)[0]
+        assert len(hit) >= 2
+        assert rowmap[np.unique(hit // wf), i].all(), (k, i)
+        assert int(np.asarray(fcnt)[i]) > 0

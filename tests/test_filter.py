@@ -1,10 +1,11 @@
-"""Pigeonhole filtration engine: conformance + adversarial density tests."""
+"""Pigeonhole filtration (piece-correlation phase 1 + banded verification):
+conformance + adversarial density tests, and the find() position paths."""
 
 import numpy as np
 import pytest
 
 from apm.models.scanner import Scanner
-from apm.ops.filter_kernel import filter_eligible, pieces_of, shift_range
+from apm.ops.filtration import filter_eligible, pieces_of
 from apm.utils.config import ApmConfig
 from apm.utils.oracle import count_matches
 from tests.conftest import random_dna
@@ -78,7 +79,10 @@ def test_filter_k0_exact():
     pat = random_dna(30, seed=32)
     for pos in [100, 1000, 2500]:
         corpus[pos : pos + 30] = pat
-    assert counts_with(corpus, [pat], 0, "filter") == count_matches(corpus, [pat], 0)
+    want = count_matches(corpus, [pat], 0)
+    assert want == [3]
+    for engine in ("auto", "dp", "corr"):  # k = 0: DP at k = 0 or the conv
+        assert counts_with(corpus, [pat], 0, engine) == want
 
 
 # -- static helpers -----------------------------------------------------------
@@ -95,22 +99,15 @@ def test_pieces_partition():
                 assert o1 + l1 == o2
 
 
-def test_shift_ranges_clipped():
-    # piece 0 never shifts left; last piece never shifts right
-    m, k = 50, 3
-    tab = pieces_of(m, k)
-    lo0, _ = shift_range(*tab[0], m, k)
-    _, hiN = shift_range(*tab[-1], m, k)
-    assert lo0 == 0 and hiN == 0
-
-
 def test_eligibility_rules():
-    from apm.ops.filter_kernel import banded_j, tier_of
+    from apm.ops.filtration import FP1_LMIN, banded_j, tier_of
 
-    assert filter_eligible(50, 0)
+    assert not filter_eligible(50, 0)  # k = 0 is exact matching, no phase 1
     assert filter_eligible(50, 1)
-    assert filter_eligible(50, 4)  # l=10 >= max(4,8)=8
+    assert filter_eligible(50, 4)  # l=10 >= FP1_LMIN
+    assert not filter_eligible(44, 4)  # l=8: exact tier, too short to scan
     assert not filter_eligible(20, 2)  # l=6 < 8
+    assert FP1_LMIN == 10
     # k in [5, 16]: exact tier for long patterns, banded tier for mid.
     assert tier_of(84, 5) == (6, 0)  # l=14 exact pieces
     assert tier_of(50, 5) == (3, 1)  # banded: j=3, l=16, 1 error each
@@ -121,14 +118,17 @@ def test_eligibility_rules():
     assert tier_of(16 * 9, 16) == (9, 1)
     assert tier_of(140, 16) is None  # 140//9=15 < 16
     assert not filter_eligible(50, 17)  # beyond K_MAX
+    assert filter_eligible(84, 5)  # exact tier, l=14
+    assert not filter_eligible(50, 5)  # banded tier: no correlation form
     for k in range(5, 17):
         assert k // banded_j(k) == 1  # pigeonhole: 1 error per piece
 
 
 def test_filter_maximal_left_shift_at_row_boundary():
     """A match whose only certificate is a piece shifted by exactly -k,
-    with the window start on lane 0 of a fold row (the coordinate case
-    the pre-rotated text copy exists for)."""
+    with the window start on the first and last window of a staging row:
+    the piece correlation's row-any candidacy must still see it (halo
+    margin) and phase 2 must verify it."""
     rng = np.random.default_rng(5)
     alpha = np.frombuffer(b"ACGT", np.uint8)
     corpus = alpha[rng.integers(0, 4, size=2048)].copy()
@@ -141,7 +141,8 @@ def test_filter_maximal_left_shift_at_row_boundary():
     for j in [128, 256 - 1, 512]:  # lane 0, lane wf-1, lane 0 (wf=128)
         corpus[j : j + len(w)] = w
     want = count_matches(corpus, [pat], k)
-    got = counts_with(corpus, [pat], k, "filter")
+    assert want[0] >= 3
+    got = counts_with(corpus, [pat], k, "auto")
     assert got == want
 
 
@@ -248,8 +249,8 @@ def test_find_limit_and_tail():
 
 def test_find_dense_matches_device_path():
     """find() on a corpus where nearly EVERY window matches: the device
-    mask path (gather batches + verdict mask) must return all positions
-    exactly — this used to be a host-oracle re-scan of every hot row."""
+    mask path must return all positions exactly, with no host-oracle
+    re-scan of hot rows."""
     from apm.models.scanner import Scanner
 
     corpus = np.full(6000, ord("A"), dtype=np.uint8)
@@ -264,7 +265,7 @@ def test_find_dense_matches_device_path():
 
 def test_find_multichunk_multibatch():
     """Positions across multiple staged chunks and gather batches, with a
-    second (short, oracle-swept) pattern in the same scan."""
+    second (short) pattern in the same scan."""
     from apm.models.scanner import Scanner
 
     rng = np.random.default_rng(77)
@@ -285,10 +286,10 @@ def test_find_multichunk_multibatch():
 
 
 def test_find_dense_sweep_ineligible_overflow():
-    """ALL-ineligible pattern set (short, k=2) on a corpus where every
-    window matches: the dense verdict-mask sweep (sweep_positions_chunk)
-    must resolve every position on device, including overflow past
-    FIND_BATCH hot rows and multiple chunks."""
+    """A short pattern (k=2) on a corpus where every window matches: the
+    verdict-mask sweep (sweep_positions_chunk) must resolve every position
+    on device, including overflow past FIND_BATCH hot rows and multiple
+    chunks."""
     from apm.models.scanner import Scanner
 
     corpus = np.full(30000, ord("A"), dtype=np.uint8)
@@ -306,8 +307,8 @@ def test_find_dense_sweep_ineligible_overflow():
 
 @pytest.mark.parametrize("k", [5, 7])
 def test_find_dense_sweep_high_k(k):
-    """High-k short patterns (filtration-ineligible at any tier) through
-    the dense device sweep, sparse matches + EOF tail."""
+    """High-k short patterns through the device sweep, sparse matches +
+    EOF tail."""
     from apm.models.scanner import Scanner
 
     rng = np.random.default_rng(31 * k)
@@ -325,9 +326,9 @@ def test_find_dense_sweep_high_k(k):
 
 
 def test_find_mixed_eligibility_same_scan():
-    """One scan mixing an eligible 50-char pattern (filtration path), an
-    ineligible 6-char pattern (dense sweep), and a duplicate — positions
-    for each must match the oracle and agree with count()."""
+    """One scan mixing a 50-char pattern (filtration in count()), a 6-char
+    one (banded DP in count()), and a duplicate — find()'s positions for
+    each must match the oracle and agree with count()."""
     from apm.models.scanner import Scanner
 
     rng = np.random.default_rng(99)
@@ -349,9 +350,9 @@ def test_find_mixed_eligibility_same_scan():
 
 @pytest.mark.parametrize("k", [5, 6, 8])
 def test_high_k_filtration_vs_oracle(k):
-    """Exact-piece filtration extended to k in [5, 8] for long patterns
-    (piece length >= 14). Planted k-error occurrences recovered exactly."""
-    from apm.ops.filter_kernel import filter_eligible
+    """Exact-piece filtration at k in [5, 8] for long patterns (piece
+    length >= 14). Planted k-error occurrences recovered exactly."""
+    from apm.ops.filtration import filter_eligible
     from apm.utils.corpus import plant, random_pattern
 
     m = 14 * (k + 1)
@@ -359,11 +360,11 @@ def test_high_k_filtration_vs_oracle(k):
     corpus = random_dna(40_000, seed=300 + k)
     pat = random_pattern(m, seed=310 + k)
     plant(corpus, pat, [900, 20_000, 38_000], k=k, seed=320 + k)
-    cfg = ApmConfig(
-        backend="pallas", interpret=True, engine="filter",
-        block_windows=1024,
-    )
+    cfg = ApmConfig(backend="pallas", interpret=True, block_windows=1024)
     sc = Scanner([pat], k, cfg)
+    from apm.models.pipeline import make_plan
+
+    assert make_plan(sc, len(corpus)).any_filter
     got = sc.count(corpus).tolist()
     want = count_matches(corpus, [pat], k)
     assert got == want
@@ -373,8 +374,9 @@ def test_high_k_filtration_vs_oracle(k):
 @pytest.mark.parametrize("k", [5, 6, 8])
 def test_banded_tier_mid_length_vs_oracle(k):
     """Banded-piece tier: mid-length patterns at k in [5, 8] (too short
-    for k+1 exact pieces). Planted k-error occurrences recovered exactly."""
-    from apm.ops.filter_kernel import tier_of
+    for k+1 exact pieces) have no correlation phase 1 and run the banded
+    DP. Planted k-error occurrences recovered exactly."""
+    from apm.ops.filtration import tier_of
     from apm.utils.corpus import plant, random_pattern
 
     m = 14 * (k + 1) - 7  # just below the exact-tier threshold
@@ -383,10 +385,7 @@ def test_banded_tier_mid_length_vs_oracle(k):
     corpus = random_dna(30_000, seed=400 + k)
     pat = random_pattern(m, seed=410 + k)
     plant(corpus, pat, [700, 15_000, 28_000], k=k, seed=420 + k)
-    cfg = ApmConfig(
-        backend="pallas", interpret=True, engine="filter",
-        block_windows=1024,
-    )
+    cfg = ApmConfig(backend="pallas", interpret=True, block_windows=1024)
     got = Scanner([pat], k, cfg).count(corpus).tolist()
     want = count_matches(corpus, [pat], k)
     assert got == want
@@ -400,7 +399,7 @@ def test_banded_tier_boundary_drift_certificates():
     one middle piece (endpoint pieces certify with zero errors)."""
     k = 6
     m = 70  # banded tier: j=4, l=17
-    from apm.ops.filter_kernel import tier_of
+    from apm.ops.filtration import tier_of
 
     assert tier_of(m, k) == (4, 1)
     rng = np.random.default_rng(88)
@@ -423,10 +422,7 @@ def test_banded_tier_boundary_drift_certificates():
         corpus[pos : pos + len(w)] = w
     want = count_matches(corpus, [pat], k)
     assert want[0] >= 3  # every construction is a real match
-    cfg = ApmConfig(
-        backend="pallas", interpret=True, engine="filter",
-        block_windows=1024,
-    )
+    cfg = ApmConfig(backend="pallas", interpret=True, block_windows=1024)
     got = Scanner([pat], k, cfg).count(corpus).tolist()
     assert got == want
 
@@ -435,7 +431,7 @@ def test_banded_tier_boundary_drift_certificates():
 def test_k_beyond_8_filtration_vs_oracle(k):
     """Both tiers extended to k in [9, 16]: one long (exact-tier) and one
     mid-length (banded-tier) pattern in the same scan, vs the oracle."""
-    from apm.ops.filter_kernel import banded_j, tier_of
+    from apm.ops.filtration import banded_j, tier_of
     from apm.utils.corpus import plant, random_pattern
 
     m_long = 14 * (k + 1)
@@ -474,15 +470,14 @@ def test_mixed_tiers_one_scan():
 def test_find_pos_cap_overflow_mask_fallback(monkeypatch):
     """When a verdict-mask batch holds more hits than POS_CAP, the host
     must fall back to the packed-mask fetch — shrink POS_CAP so a small
-    dense corpus overflows it on both find paths (r4 position
-    compaction)."""
+    dense corpus overflows it, for a short and a long pattern."""
     import apm.ops.fused as fused
     from apm.models.scanner import Scanner
 
     monkeypatch.setattr(fused, "POS_CAP", 8)
     corpus = np.full(9000, ord("A"), dtype=np.uint8)
-    short = np.full(8, ord("A"), dtype=np.uint8)  # ineligible -> sweep
-    longp = np.full(48, ord("A"), dtype=np.uint8)  # eligible -> filter
+    short = np.full(8, ord("A"), dtype=np.uint8)
+    longp = np.full(48, ord("A"), dtype=np.uint8)
     cfg = ApmConfig(
         backend="pallas", interpret=True, block_windows=1024,
         chunk_bytes=4096,
@@ -496,8 +491,8 @@ def test_find_pos_cap_overflow_mask_fallback(monkeypatch):
 def test_find_dense_gpos_branch(monkeypatch):
     """Dense-scattered regime: many hot rows (n_hot > FIND_BATCH) but few
     hits per group — positions must come from the sweep's per-group
-    compaction (gpos decode), not gather batches (r4 dense fix).
-    FIND_BATCH is shrunk so a small interpret-mode corpus overflows it."""
+    compaction (gpos decode), not gather batches. FIND_BATCH is shrunk so
+    a small interpret-mode corpus overflows it."""
     import apm.ops.fused as fused
     from apm.models.scanner import Scanner
 

@@ -16,12 +16,13 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF = "/root/reference"
+# The reference project's checkout (its src/, include/ and dna/).
+REF = os.environ.get("APM_REFERENCE_DIR", "")
 
 
 @pytest.fixture(scope="module")
 def seq_binary(tmp_path_factory):
-    if not os.path.isdir(os.path.join(REF, "src")):
+    if not REF or not os.path.isdir(os.path.join(REF, "src")):
         pytest.skip("reference source tree not available")
     if shutil.which("gcc") is None:
         pytest.skip("gcc not available")

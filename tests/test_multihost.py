@@ -148,14 +148,14 @@ def test_multihost_two_processes_mixed_overflow_rescan(tmp_path):
     sharded row maps (rowmap=None), so finalize_filtration MUST recover
     through the banded rescan — asserted via the worker's rescan-call
     counter, executing multihost.py's multi-process overflow branch for
-    real (VERDICT r3 'do this' #5)."""
+    real."""
     from apm.utils.corpus import plant, random_pattern
 
     k = 2
     data = random_dna(40000, seed=141)
     short = random_pattern(6, seed=142)  # ineligible -> banded DP path
     elig = random_pattern(48, seed=143)  # exact tier (pieces of 16)
-    # wf = block_windows/fold = 1024/8 = 128 windows/row; shard s ~ 5k
+    # wf = block_windows/8 = 1024/8 = 128 windows/row; shard s ~ 5k
     # windows. 12 plants in distinct rows of shard 0 (> MAX_HOT=8
     # overflow), a few in later shards; total hot rows << the density
     # threshold (max(64, dev_bound/2560) = 64), so the rescan comes from
@@ -174,9 +174,9 @@ def test_multihost_two_processes_mixed_overflow_rescan(tmp_path):
 
 
 def test_multihost_two_processes_banded_tier(tmp_path):
-    """2-process banded-piece-tier scan (k = 6, j = 4 pieces of 1 error
-    each) mixed with an ineligible short pattern — the generalized
-    pigeonhole tier crossing process boundaries."""
+    """2-process k = 6 scan of a banded-tier-length pattern (no
+    correlation phase 1: banded DP) mixed with a short pattern, across
+    process boundaries."""
     from apm.utils.corpus import plant, random_pattern
 
     k = 6
@@ -204,10 +204,7 @@ def test_multihost_filtration_with_plants(corpus_file):
         f.write(mutable.tobytes())
         path2 = f.name
     try:
-        cfg = ApmConfig(
-            backend="pallas", interpret=True, engine="filter",
-            block_windows=1024,
-        )
+        cfg = ApmConfig(backend="pallas", interpret=True, block_windows=1024)
         sc = Scanner([pat], 2, cfg)
         got = [int(c) for c in count_multihost(sc, path2)[:1]]
         want = count_matches(mutable, [pat], 2)

@@ -5,7 +5,8 @@ The two implementations must agree bit-for-bit on counts, masks, and batch
 outputs for every k where the bit mode is representable (1 <= k <= 14);
 ``dp_impl="myers"`` forces it on, ``"band"`` forces it off, and the
 Scanner-level tests exercise the full pipeline (filtration phase 2, find,
-host tail) with the mode active.
+host tail) with the mode active. The kernel runs in the Pallas
+interpreter.
 """
 
 import jax.numpy as jnp
@@ -15,27 +16,28 @@ import pytest
 from apm.models.scanner import Scanner
 from apm.ops.common import fold_corpus, round_up
 from apm.ops.pallas_kernel import (
-    FOLD,
     MYERS_KMIN_AUTO,
+    DPStep,
     _myers_mode,
-    scan_folded_pallas_batch,
-    scan_folded_pallas_mask,
-    scan_folded_pallas_unrolled,
+    dp_count,
+    dp_mask,
+    dp_scan,
 )
 from apm.utils.config import ApmConfig
 from apm.utils.io import PatternSet
 from apm.utils.oracle import as_u8, count_matches
 from tests.conftest import random_dna
 
+BAND = DPStep("pallas", interpret=True)
 
-def _scanner_counts(corpus, patterns, k, dp_impl, engine="auto"):
+
+def _scanner_counts(corpus, patterns, k, dp_impl):
     cfg = ApmConfig(
         backend="pallas",
         interpret=True,
         strategy="single",
         block_windows=1024,
         dp_impl=dp_impl,
-        engine=engine,
     )
     return Scanner(patterns, k, cfg).count(as_u8(corpus)).tolist()
 
@@ -47,7 +49,7 @@ def _kernel_args(corpus, patterns, k, wf=256):
     m_max = ps.max_len
     halo = round_up(m_max + 2 * k, 128)
     bound = max(len(buf) - m_max + 1, 0)
-    n_rows = max(FOLD, round_up(-(-bound // wf), FOLD))
+    n_rows = max(1, -(-bound // wf))
     rows = fold_corpus(buf, 0, n_rows, wf, halo)
     alphabet = tuple(sorted({int(b) for p in ps.raw for b in p}))
     return (
@@ -55,11 +57,8 @@ def _kernel_args(corpus, patterns, k, wf=256):
         jnp.asarray(pat),
         jnp.asarray(bound, jnp.int32),
         jnp.asarray(0, jnp.int32),
-        dict(
-            k=k, m_max=m_max, wf=wf, halo=halo,
-            plens=tuple(int(x) for x in ps.lengths), interpret=True,
-        ),
-        alphabet,
+        dict(k=k, m_max=m_max, wf=wf, plens=tuple(int(x) for x in ps.lengths)),
+        DPStep("pallas", interpret=True, alphabet=alphabet),
         bound,
         buf,
         ps,
@@ -88,17 +87,11 @@ def test_kernel_myers_matches_band_and_oracle(k):
         for _ in range(k):  # mutate up to the threshold
             pb[int(rng.integers(0, m))] = ord("ACGT"[rng.integers(0, 4)])
         pats.append(bytes(pb))
-    rows, pat, bound, start, kw, alphabet, bnd, buf, ps = _kernel_args(
+    rows, pat, bound, start, kw, myers_dp, bnd, buf, ps = _kernel_args(
         corpus, pats, k
     )
-    band = np.asarray(
-        scan_folded_pallas_unrolled(rows, pat, bound, start, **kw,
-                                    dp_impl="band")
-    )
-    myers = np.asarray(
-        scan_folded_pallas_unrolled(rows, pat, bound, start, **kw,
-                                    dp_impl="myers", alphabet=alphabet)
-    )
+    band = np.asarray(dp_count(rows, pat, bound, start, **kw, dp=BAND))
+    myers = np.asarray(dp_count(rows, pat, bound, start, **kw, dp=myers_dp))
     ref = _oracle_device_counts(buf, ps, k, bnd)
     assert band.tolist() == ref
     assert myers.tolist() == ref
@@ -112,17 +105,11 @@ def test_kernel_myers_binary_alphabet():
     ).astype(np.uint8)
     pats = [bytes(corpus[50:71]), bytes([0, 255, 0, 1, 65] * 3)]
     k = 4
-    rows, pat, bound, start, kw, alphabet, bnd, buf, ps = _kernel_args(
+    rows, pat, bound, start, kw, myers_dp, bnd, buf, ps = _kernel_args(
         corpus, pats, k
     )
-    band = np.asarray(
-        scan_folded_pallas_unrolled(rows, pat, bound, start, **kw,
-                                    dp_impl="band")
-    )
-    myers = np.asarray(
-        scan_folded_pallas_unrolled(rows, pat, bound, start, **kw,
-                                    dp_impl="myers", alphabet=alphabet)
-    )
+    band = np.asarray(dp_count(rows, pat, bound, start, **kw, dp=BAND))
+    myers = np.asarray(dp_count(rows, pat, bound, start, **kw, dp=myers_dp))
     assert band.tolist() == myers.tolist() == _oracle_device_counts(
         buf, ps, k, bnd
     )
@@ -132,47 +119,49 @@ def test_mask_kernel_myers_parity():
     corpus = random_dna(3000, seed=5)
     pats = [bytes(corpus[100:126]), bytes(corpus[700:715])]
     k = 6
-    rows, pat, bound, start, kw, alphabet, bnd, buf, ps = _kernel_args(
+    rows, pat, bound, start, kw, myers_dp, bnd, buf, ps = _kernel_args(
         corpus, pats, k
     )
-    cb, mb = scan_folded_pallas_mask(rows, pat, bound, start, **kw,
-                                     dp_impl="band")
-    cm, mm = scan_folded_pallas_mask(rows, pat, bound, start, **kw,
-                                     dp_impl="myers", alphabet=alphabet)
-    assert np.asarray(cb).tolist() == np.asarray(cm).tolist()
-    np.testing.assert_array_equal(np.asarray(mb), np.asarray(mm))
+    mb = np.asarray(dp_mask(rows, pat, bound, start, **kw, dp=BAND))
+    mm = np.asarray(dp_mask(rows, pat, bound, start, **kw, dp=myers_dp))
+    assert mb.sum() > 0
+    np.testing.assert_array_equal(mb, mm)
+    assert mb.sum(axis=(0, 2)).tolist() == _oracle_device_counts(
+        buf, ps, k, bnd
+    )
 
 
 def test_batch_kernel_myers_parity():
     corpus = random_dna(2500, seed=6)
     pats = [bytes(corpus[10:30])]
     k = 5
-    rows, pat, bound, start, kw, alphabet, bnd, buf, ps = _kernel_args(
+    rows, pat, bound, start, kw, myers_dp, bnd, buf, ps = _kernel_args(
         corpus, pats, k
     )
-    nblk = rows.shape[0] // FOLD
-    w = FOLD * kw["wf"]
+    n_rows, wf = rows.shape[0], kw["wf"]
+    # per-row table: odd rows carry a zero bound (every window masked)
     meta = jnp.asarray(
-        [[int(bnd), i * w] for i in range(nblk)], jnp.int32
+        [[int(bnd) if r % 2 == 0 else 0, r * wf] for r in range(n_rows)],
+        jnp.int32,
     )
-    cb = scan_folded_pallas_batch(rows, pat, meta, **kw, dp_impl="band")
-    cm = scan_folded_pallas_batch(rows, pat, meta, **kw, dp_impl="myers",
-                                  alphabet=alphabet)
-    np.testing.assert_array_equal(np.asarray(cb), np.asarray(cm))
+    cb = np.asarray(dp_scan(rows, pat, meta, **kw, dp=BAND))
+    cm = np.asarray(dp_scan(rows, pat, meta, **kw, dp=myers_dp))
+    np.testing.assert_array_equal(cb, cm)
+    assert cb[1::2].sum() == 0 and cb[0::2].sum() > 0
 
 
 def test_myers_mode_gating():
     a4 = (65, 67, 71, 84)
-    assert not _myers_mode(0, a4, "int32", "auto", 4, 50)
-    assert not _myers_mode(15, a4, "int32", "myers", 4, 50)  # band > 31 bits
-    assert not _myers_mode(5, (), "int32", "myers", 4, 50)  # no alphabet
-    assert not _myers_mode(5, a4, "int16", "myers", 4, 50)  # narrow dtype
-    assert not _myers_mode(5, a4, "int32", "band", 4, 50)  # forced off
-    assert not _myers_mode(5, tuple(range(9)), "int32", "myers", 4, 50)
-    assert not _myers_mode(50, a4, "int32", "myers", 4, 50)  # k >= m_max
-    assert _myers_mode(MYERS_KMIN_AUTO, a4, "int32", "auto", 4, 50)
-    assert not _myers_mode(MYERS_KMIN_AUTO - 1, a4, "int32", "auto", 4, 50)
-    assert _myers_mode(1, a4, "int32", "myers", 4, 50)  # forced on
+    assert not _myers_mode(0, a4, "auto", 4, 50)
+    assert not _myers_mode(15, a4, "myers", 4, 50)  # band > 31 bits
+    assert not _myers_mode(5, (), "myers", 4, 50)  # no alphabet
+    assert not _myers_mode(5, a4, "myers", 4096, 50)  # PEQ table budget
+    assert not _myers_mode(5, a4, "band", 4, 50)  # forced off
+    assert not _myers_mode(5, tuple(range(9)), "myers", 4, 50)
+    assert not _myers_mode(50, a4, "myers", 4, 50)  # k >= m_max
+    assert _myers_mode(MYERS_KMIN_AUTO, a4, "auto", 4, 50)
+    assert not _myers_mode(MYERS_KMIN_AUTO - 1, a4, "auto", 4, 50)
+    assert _myers_mode(1, a4, "myers", 4, 50)  # forced on
 
 
 @pytest.mark.parametrize("k", [3, 6, 9])

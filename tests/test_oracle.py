@@ -153,3 +153,22 @@ def test_profiling_utilities():
         with trace(d):
             pass  # a real jax trace start/stop cycle
         assert os.listdir(d)  # trace files were written
+
+
+def test_reference_shaped_corpus():
+    """The seeded stand-in for the reference's .fa files: 50-byte ACGT
+    lines, an absent 32-byte pattern, and plants where it says."""
+    from apm.utils.corpus import FA_LINE, reference_shaped
+
+    corpus, line, absent, plants = reference_shaped(
+        40_000, seed=3, exact=3, fuzzy=2
+    )
+    assert len(line) == FA_LINE and len(absent) == 32
+    assert set(np.unique(corpus).tobytes()) <= set(b"ACGT\n")
+    assert (corpus[FA_LINE - 1 :: FA_LINE] == ord("\n")).all()
+    assert [s for _, s in plants].count(0) == 3
+    assert count_matches(corpus, [absent, line], 0) == [0, 3]
+    for pos, subs in plants:
+        assert int(banded_distances(corpus[pos : pos + FA_LINE], line, 2)[0]) == subs
+    again = reference_shaped(40_000, seed=3, exact=3, fuzzy=2)
+    assert np.array_equal(again[0], corpus) and again[3] == plants

@@ -94,10 +94,14 @@ def test_sharded_filtration_with_plants():
     corpus = random_corpus(8000, seed=42)
     plant(corpus, pat, [300, 2100, 5000, 7400], k=2, seed=43)
     cfg = ApmConfig(
-        backend="pallas", interpret=True, engine="filter",
+        backend="pallas", interpret=True,
         strategy="database_over_devices", block_windows=1024, max_devices=4,
     )
-    got = Scanner([pat], 2, cfg).count(corpus)
+    sc = Scanner([pat], 2, cfg)
+    from apm.models.pipeline import make_plan
+
+    assert make_plan(sc, len(corpus)).any_filter
+    got = sc.count(corpus)
     want = count_matches(corpus, [pat], 2)
     assert got.tolist() == want
     assert want[0] >= 4
@@ -107,7 +111,8 @@ def test_sharded_filtration_with_plants():
     "strategy", ["database_over_devices", "patterns_over_devices"]
 )
 def test_pallas_backend_sharded(strategy):
-    """Pallas kernel (interpret) under shard_map matches the oracle."""
+    """The Triton kernel (interpret) under both strategies matches the
+    oracle."""
     corpus = random_dna(6000, seed=31)
     pats = [random_dna(m, seed=90 + m) for m in [10, 33, 50]]
     k = 1
@@ -238,10 +243,10 @@ def test_sharded_dedup_filter_mixed():
 
 
 def test_patterns_over_devices_fused_pipeline():
-    """Pallas patterns-over-devices now runs the full per-device pipeline
-    (length-segmented DP + fused filtration, static lengths per group)
-    via placement-parallel dispatch (VERDICT r1 weak #9). Mixed lengths,
-    duplicates, planted fuzzy matches, 8 devices."""
+    """patterns-over-devices runs the full per-device pipeline (banded DP
+    + filtration, static lengths per group) via placement-parallel
+    dispatch. Mixed lengths, duplicates, planted fuzzy matches, 8
+    devices."""
     from apm.utils.corpus import plant, random_pattern
 
     corpus = random_dna(20_000, seed=171)
@@ -253,7 +258,6 @@ def test_patterns_over_devices_fused_pipeline():
         backend="pallas",
         interpret=True,
         strategy="patterns_over_devices",
-        engine="filter",
         block_windows=1024,
     )
     sc = Scanner(pats, 1, cfg)
